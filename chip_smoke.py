@@ -15,9 +15,14 @@ where there is no CUDA device or the port's package is missing.  It
    the run;
 3. holds the GPU evaluator against the CPU one on 262,144 genomes per
    workload and measures its rows per second;
-4. holds each kernel against its plain PyTorch version on the card and
-   times kernel, plain version and one library call beside the least time
-   the card could take (``bound_ms``).
+4. holds each kernel against its plain PyTorch version on the card — the
+   reference's test shapes, the edges of each route's tiles (half a query
+   tile, empty, fully dense and all-zero block-rows, every column tile) and
+   the workload shapes — and times kernel, plain version and one library
+   call beside the least time the card could take (``bound_ms``).  Each
+   row names the route that ran (``kernel_route``: ``wgmma``, ``wmma`` or
+   ``fma``, chosen by the wrappers' ``flash_plan`` / ``bsr_plan``);
+   ``graph_ms`` is the kernel's device time without the host's share.
 
 Every check that fails raises, so the script exits non-zero.  One JSON
 object per phase goes to standard output; the second to last line is the
@@ -87,6 +92,32 @@ def time_ms(fn, reps: int, flush) -> float:
     torch.cuda.synchronize()
     ts = sorted(a.elapsed_time(b) for a, b in pairs)
     return ts[len(ts) // 2]
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device time of one ``fn()`` without the host's share: ``calls``
+    calls captured in one CUDA graph, replayed, timed by CUDA events (no
+    L2 flush between the calls)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / calls
 
 
 # ------------------------------------------------------------------ search
@@ -166,10 +197,13 @@ def _random_block_sparse(rng, m, k, bm, bk, density):
 
 def _bsr_case(name, p, q, bm, bk, bn, dtype, device):
     import torch
+    from repro_torch.kernels.bsr_spmm import bsr_plan
     from repro_torch.kernels.ref import dense_to_bsr
     blocks, col_idx, row_ptr = dense_to_bsr(p, bm, bk)
+    plan = bsr_plan(dtype, bm, bk, q.shape[1])
     return dict(
         name=name, bm=bm, bk=bk, bn=bn, m_blocks=p.shape[0] // bm,
+        kernel_route=plan.route, tile=plan.bn,
         nnz=int(row_ptr[-1]), M=p.shape[0], K=p.shape[1], N=q.shape[1],
         dtype=str(dtype).replace("torch.", ""),
         args=(torch.from_numpy(blocks).to(device, dtype),
@@ -183,6 +217,7 @@ def workload_cases(device):
     """Kernel inputs at shapes of the searched workloads, from a seed."""
     import numpy as np
     import torch
+    from repro_torch.kernels.flash_attention import flash_plan
     rng = np.random.default_rng(0)
     bf16 = torch.bfloat16
     bsr = []
@@ -200,9 +235,11 @@ def workload_cases(device):
     gen = torch.Generator(device="cpu").manual_seed(0)
     qkv = tuple((torch.randn((2, 16, 4096, 128), generator=gen) * sc
                  ).to(device, bf16) for sc in (0.3, 0.3, 1.0))
+    plan = flash_plan(bf16, 4096, 128)
     flash = [dict(name=f"B2_H16_S4096_hd128_{'causal' if c else 'full'}",
                   causal=c, B=2, H=16, S=4096, hd=128, dtype="bfloat16",
-                  args=qkv) for c in (True, False)]
+                  kernel_route=plan.route, tile=plan.tile, args=qkv)
+             for c in (True, False)]
     return bsr, flash
 
 
@@ -380,7 +417,8 @@ def bsr_checks(device, bsr_cases):
     and the workload shapes."""
     import numpy as np
     import torch
-    from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+    from repro_torch.kernels.bsr_spmm import (bsr_plan, bsr_spmm,
+                                              bsr_spmm_plain)
     from repro_torch.kernels.ref import dense_to_bsr
     results = []
     shapes = [(32, 256, 128, 8, 128, 128), (64, 128, 256, 16, 128, 128),
@@ -416,6 +454,43 @@ def bsr_checks(device, bsr_cases):
     check(float(z.abs().max()) == 0.0, "all-zero P must give an all-zero Z")
     results.append(dict(case="all_zero", dtype="float32", max_abs_err=0.0,
                         tol=0.0))
+    for bm in (64, 128):
+        blocks, col_idx, row_ptr = dense_to_bsr(
+            np.zeros((2 * bm, 256), np.float32), bm, 128)
+        z = bsr_spmm(torch.from_numpy(blocks).to(device, torch.bfloat16),
+                     torch.from_numpy(col_idx).to(device),
+                     torch.from_numpy(row_ptr).to(device),
+                     torch.randn(256, 256, device=device,
+                                 dtype=torch.bfloat16), m_blocks=2, bn=32)
+        check(float(z.float().abs().max()) == 0.0,
+              f"all-zero P ({bm}-row blocks, bf16) must give an all-zero Z")
+        results.append(dict(case=f"all_zero_{bm}x128", dtype="bfloat16",
+                            route=bsr_plan(torch.bfloat16, bm, 128, 256).route,
+                            max_abs_err=0.0, tol=0.0))
+    # the wgmma route's edges: an empty, a fully dense (16 stored blocks:
+    # the ring wraps several times) and a half-full block-row, on every
+    # column tile and both swizzles of P
+    for bm in (64, 128):
+        for bk in (32, 64, 128):
+            for n in (64, 96, 256, 512):
+                p = _random_block_sparse(rng, 3 * bm, 16 * bk, bm, bk, 0.5)
+                p[0:bm] = 0
+                p[bm:2 * bm] = rng.standard_normal((bm, 16 * bk))
+                q = rng.standard_normal((16 * bk, n)).astype(np.float32)
+                c = _bsr_case(f"edge_{bm}x{bk}_N{n}", p, q, bm, bk, 32,
+                              torch.bfloat16, device)
+                z = bsr_spmm(*c["args"], m_blocks=3, bn=32)
+                zp = bsr_spmm_plain(*c["args"], m_blocks=3)
+                torch.cuda.synchronize()
+                check(float(z[0:bm].float().abs().max()) == 0.0,
+                      f"{c['name']}: empty block-row is not zero")
+                _scaled_check(z, c["dense"].float() @ c["args"][3].float(),
+                              c["name"], "the dense fp32 product")
+                err, atol, share = _scaled_check(z, zp, c["name"], "plain")
+                results.append(dict(case=c["name"], dtype=c["dtype"],
+                                    route=c["kernel_route"], tile=c["tile"],
+                                    max_abs_err=err, rtol=RTOL_BF16,
+                                    atol=atol, err_over_tol=share))
     for c in bsr_cases:
         z = bsr_spmm(*c["args"], m_blocks=c["m_blocks"], bn=c["bn"])
         zp = bsr_spmm_plain(*c["args"], m_blocks=c["m_blocks"])
@@ -434,7 +509,8 @@ def flash_checks(device, flash_cases):
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     flash_plan)
     results = []
     rng = np.random.default_rng(2)
     for s, hd in ((256, 128), (512, 128), (256, 64)):
@@ -463,6 +539,27 @@ def flash_checks(device, flash_cases):
     results.append(dict(case="causal_row0_is_v0", dtype="float32",
                         max_abs_err=_max_err(o[0, 0, 0], v[0, 0, 0]),
                         tol=1e-5))
+    # the wgmma route's edges: half a query tile (192, 384) and the long
+    # sequence, both head widths
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    for b, h, s in ((1, 2, 192), (1, 2, 384), (1, 2, 4096)):
+        for hd in (64, 128):
+            q, k, v = ((torch.randn((b, h, s, hd), generator=gen) * sc
+                        ).to(device, torch.bfloat16) for sc in (0.3, 0.3, 1.0))
+            for causal in (True, False):
+                name = f"edge_S{s}_hd{hd}_{'causal' if causal else 'full'}"
+                o = flash_attention(q, k, v, causal=causal, bq=64, bk=64)
+                op = flash_attention_plain(q, k, v, causal=causal)
+                o32 = flash_attention_plain(q.float(), k.float(), v.float(),
+                                            causal=causal)
+                torch.cuda.synchronize()
+                _scaled_check(o, o32, name, "the fp32 result")
+                err, atol, share = _scaled_check(o, op, name, "plain")
+                results.append(dict(
+                    case=name, dtype="bfloat16",
+                    route=flash_plan(torch.bfloat16, s, hd).route,
+                    max_abs_err=err, rtol=RTOL_BF16, atol=atol,
+                    err_over_tol=share))
     for c in flash_cases:
         o = flash_attention(*c["args"], causal=c["causal"])
         op = flash_attention_plain(*c["args"], causal=c["causal"])
@@ -504,7 +601,8 @@ def kernel_timings(device, bsr_cases, flash_cases):
     bound computed from this run's inputs."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+    from repro_torch.kernels.bsr_spmm import (bsr_plan, bsr_spmm,
+                                              bsr_spmm_plain)
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=device)
@@ -515,6 +613,14 @@ def kernel_timings(device, bsr_cases, flash_cases):
                                 flush)
         c["library_ms"] = time_ms(lambda: torch.matmul(c["dense"], a[3]), 10,
                                   flush)
+        c["graph_ms"] = graph_ms(lambda: bsr_spmm(*a, m_blocks=mb, bn=bn))
+        if c["kernel_route"] == "wgmma":   # the other grid order, once
+            plan = bsr_plan(c["args"][0].dtype, c["bm"], c["bk"], c["N"])
+            other = plan._replace(rows_fastest=not plan.rows_fastest)
+            c["rows_fastest"] = plan.rows_fastest
+            c["ms_other_grid_order"] = time_ms(
+                lambda: bsr_spmm(*a, m_blocks=mb, bn=bn, plan=other), 10,
+                flush)
         c["bound_ms"], c["bound_by"], c["flops"], c["bytes"] = bsr_bound(c)
     for c in flash_cases:
         a, causal = c["args"], c["causal"]
@@ -522,6 +628,7 @@ def kernel_timings(device, bsr_cases, flash_cases):
                           flush)
         c["plain_ms"] = time_ms(
             lambda: flash_attention_plain(*a, causal=causal), 1, flush)
+        c["graph_ms"] = graph_ms(lambda: flash_attention(*a, causal=causal))
         c["library_ms"] = time_ms(
             lambda: F.scaled_dot_product_attention(*a, is_causal=causal), 10,
             flush)
@@ -529,10 +636,13 @@ def kernel_timings(device, bsr_cases, flash_cases):
 
 
 def _case_row(c):
-    keys = ("name", "dtype", "max_abs_err", "rtol", "atol", "err_over_tol",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "flops",
-            "bytes")
+    keys = ("name", "dtype", "kernel_route", "tile", "max_abs_err", "rtol",
+            "atol", "err_over_tol", "ms", "graph_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "flops", "bytes")
     row = {k: c[k] for k in keys}
+    for key in ("rows_fastest", "ms_other_grid_order"):
+        if key in c:
+            row[key] = c[key]
     row["tflops"] = c["flops"] / (c["ms"] * 1e-3) / 1e12
     row["share_of_bound"] = c["bound_ms"] / c["ms"]
     return row
@@ -544,6 +654,7 @@ def kernel_table(bsr_cases, flash_cases, launches):
     def entry(name, source, replaces, cases, head):
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
+            kernel_route="/".join(sorted({c["kernel_route"] for c in cases})),
             launches=launches[name], shape=head["name"],
             max_abs_err=max(c["max_abs_err"] for c in cases),
             tol=f"{ATOL_RMS}*rms + {RTOL_BF16}*|x|",

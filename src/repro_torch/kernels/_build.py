@@ -26,6 +26,10 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+#: the kernel routes, by the numbers the C entry points know them by
+#: (``enum { ROUTE_FMA, ROUTE_WMMA, ROUTE_WGMMA }`` in every source)
+ROUTES = {"fma": 0, "wmma": 1, "wgmma": 2}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 

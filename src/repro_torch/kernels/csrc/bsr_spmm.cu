@@ -13,20 +13,39 @@
 // and is rounded to the output type once at the store (the TPU kernel
 // adds every step's product into the output tile in the output type).
 //
-// Two kernels share that plan.  bsr_spmm_kernel (fp32, and bf16 blocks of
-// 8 rows) stages the operands through shared memory as fp32 in chunks of
-// KC along k; every thread owns a TM x TN register tile updated with FMA
-// arithmetic in full fp32.  bsr_spmm_wmma_kernel (bf16, bm >= 16) stages
-// them as bf16 and multiplies 16x16x16 fragments on the tensor cores
-// (wmma, fp32 accumulators); a warp owns a run of output fragments in
-// row-major order and keeps the A fragment while the row does not change.
-// The column tile is the kernel's own choice (64 where it divides N, else
-// 32), not the caller's.  Loads are plain and synchronous: wgmma, TMA and
-// copy/compute overlap are later work.
+// The route and the column tile are chosen by the Python wrapper
+// (bsr_plan) and passed in; a route this file does not have returns -1.
+//
+// "fma" (bsr_spmm_kernel: fp32, and bf16 blocks of 8 rows) stages the
+// operands through shared memory as fp32 in chunks of KC along k; every
+// thread owns a TM x TN register tile updated with FMA arithmetic in full
+// fp32.
+//
+// "wmma" (bsr_spmm_wmma_kernel: bf16, bm = 16 or 32) stages them as bf16
+// and multiplies 16x16x16 fragments on the tensor cores (wmma, fp32
+// accumulators); a warp owns a run of output fragments in row-major order.
+//
+// "wgmma" (bsr_spmm_wgmma_kernel: bf16, bm = 64 or 128).  At a block
+// density of 0.1 the product is bound by bytes (Q read and Z written once
+// outweigh the tensor cores' time), so what matters is keeping loads in
+// flight and fetching each stored block few times.  A producer warp walks
+// the stored blocks of the row and, for each, loads by TMA the P block and
+// the bk x BN slab of Q it multiplies into a ring of 2-4 stages in shared
+// memory (swizzled, `full` and `empty` mbarriers per stage); bm / 64
+// consumer warpgroups multiply with wgmma m64nBNk16 (A = P, K-major; B = Q,
+// N-major) while the next blocks load, and release a stage one block late
+// so that consecutive blocks' products overlap.  The column tile BN is up
+// to 256, so a stored block is fetched N / 256 times, not N / 64.  The
+// wrapper picks the order blocks are issued in: block-row fastest (the
+// blocks running at once share their Q slabs in L2) or column tile fastest.
+#include <mma.h>
+#include <stdint.h>
+
 #include <mma.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -117,36 +136,42 @@ int launch(const void* blocks, const int* col_idx, const int* row_ptr,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel picks its own column tile: 64 where it divides N, else 32.
+// The column tile is the wrapper's choice: 64 or 32.
 template <typename T, int BM>
 int launch_tile(const void* blocks, const int* col_idx, const int* row_ptr,
-                const void* q, void* z, int m_blocks, int n, int bk,
+                const void* q, void* z, int m_blocks, int n, int bk, int bn,
                 cudaStream_t stream) {
-  return n % 64 == 0
-             ? launch<T, BM, 64>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, stream)
-             : launch<T, BM, 32>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, stream);
+  if (bn == 64)
+    return launch<T, BM, 64>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, stream);
+  if (bn == 32)
+    return launch<T, BM, 32>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, stream);
+  return -1;
 }
 
-int launch_fp32(const void* blocks, const int* col_idx, const int* row_ptr,
-                const void* q, void* z, int m_blocks, int n, int bm, int bk,
-                cudaStream_t stream) {
+int launch_fma(const void* blocks, const int* col_idx, const int* row_ptr,
+               const void* q, void* z, int m_blocks, int n, int bm, int bk,
+               int bn, int is_bf16, cudaStream_t stream) {
+  if (is_bf16)   // bf16 blocks of 8 rows: below the tensor cores' tiles
+    return bm == 8 ? launch_tile<__nv_bfloat16, 8>(blocks, col_idx, row_ptr, q,
+                                                   z, m_blocks, n, bk, bn, stream)
+                   : -1;
   switch (bm) {
     case 8:
-      return launch_tile<float, 8>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, stream);
+      return launch_tile<float, 8>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, bn, stream);
     case 16:
-      return launch_tile<float, 16>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, stream);
+      return launch_tile<float, 16>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, bn, stream);
     case 32:
-      return launch_tile<float, 32>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, stream);
+      return launch_tile<float, 32>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, bn, stream);
     case 64:
-      return launch_tile<float, 64>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, stream);
+      return launch_tile<float, 64>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, bn, stream);
     case 128:
-      return launch_tile<float, 128>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, stream);
+      return launch_tile<float, 128>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, bn, stream);
     default:
       return -1;
   }
 }
 
-// ---------------------------------------------------------------- bf16
+// ---------------------------------------------------------- bf16: wmma
 
 template <int BM, int BN>
 struct WmmaTile {
@@ -259,26 +284,183 @@ int launch_wmma(const void* blocks, const int* col_idx, const int* row_ptr,
 template <int BM>
 int launch_wmma_tile(const void* blocks, const int* col_idx,
                      const int* row_ptr, const void* q, void* z, int m_blocks,
-                     int n, int bk, cudaStream_t stream) {
-  return n % 64 == 0
-             ? launch_wmma<BM, 64>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, stream)
-             : launch_wmma<BM, 32>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, stream);
+                     int n, int bk, int bn, cudaStream_t stream) {
+  if (bn == 64)
+    return launch_wmma<BM, 64>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, stream);
+  if (bn == 32)
+    return launch_wmma<BM, 32>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, stream);
+  return -1;
 }
 
-int launch_bf16(const void* blocks, const int* col_idx, const int* row_ptr,
-                const void* q, void* z, int m_blocks, int n, int bm, int bk,
-                cudaStream_t stream) {
-  switch (bm) {
-    case 8:  // below the tensor cores' 16-row fragment
-      return launch_tile<__nv_bfloat16, 8>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, stream);
-    case 16:
-      return launch_wmma_tile<16>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, stream);
-    case 32:
-      return launch_wmma_tile<32>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, stream);
-    case 64:
-      return launch_wmma_tile<64>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, stream);
+// ---------------------------------------------------------- bf16: wgmma
+
+constexpr int WG_MAX_STAGES = 4;
+
+template <int BM>
+struct WgTile {
+  static constexpr int CONSUMERS = BM / 64;          // warpgroups
+  static constexpr int NT = CONSUMERS * 128 + 32;    // + one producer warp
+  // ring bytes: with 64-row blocks two thread blocks share an SM, with
+  // 128-row blocks the registers allow one, which takes a deeper ring
+  static constexpr int SMEM_BUDGET = (BM == 64 ? 110 : 200) * 1024;
+};
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(WgTile<BM>::NT, BM == 64 ? 2 : 1)
+bsr_spmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_p,
+                      const __grid_constant__ CUtensorMap tm_q,
+                      const int* __restrict__ col_idx,
+                      const int* __restrict__ row_ptr,
+                      __nv_bfloat16* __restrict__ z, int m_blocks, int n,
+                      int bk, int stages, int rows_fastest) {
+  constexpr int CONSUMERS = WgTile<BM>::CONSUMERS;
+  constexpr int QW = BN < 64 ? BN : 64;     // Q columns per swizzle span
+  const int pw = bk < 64 ? bk : 64;         // P columns per swizzle span
+  const int p_bytes = BM * bk * 2;          // bk / pw regions of BM rows
+  const int q_bytes = bk * BN * 2;          // BN / QW regions of bk rows
+  const int stage_bytes = p_bytes + q_bytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = repro::align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * stage_bytes);
+  uint64_t* empty = full + WG_MAX_STAGES;
+
+  const int n_tiles = n / BN;
+  const int i = rows_fastest ? blockIdx.x % m_blocks : blockIdx.x / n_tiles;
+  const int j = rows_fastest ? blockIdx.x / m_blocks : blockIdx.x % n_tiles;
+  const int s0 = row_ptr[i];
+  const int s1 = row_ptr[i + 1];
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < stages; ++st) {
+      repro::mbar_init(&full[st], 1);
+      repro::mbar_init(&empty[st], CONSUMERS * 128);
+    }
+    repro::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS * 4) {
+    // ------------------------------------------------------ producer
+    if (threadIdx.x % 32 == 0) {
+      for (int s = s0; s < s1; ++s) {
+        const int t = s - s0;
+        const int st = t % stages;
+        repro::mbar_wait(&empty[st], ((t / stages) & 1) ^ 1);
+        repro::mbar_expect_tx(&full[st], stage_bytes);
+        uint8_t* sp = smem + st * stage_bytes;
+        for (int c = 0; c < bk / pw; ++c)
+          repro::tma_load_2d(sp + c * BM * pw * 2, &tm_p, &full[st], c * pw,
+                             s * BM);
+        const int k0 = col_idx[s] * bk;
+#pragma unroll
+        for (int c = 0; c < BN / QW; ++c)
+          repro::tma_load_2d(sp + p_bytes + c * bk * QW * 2, &tm_q, &full[st],
+                             j * BN + c * QW, k0);
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    const int cw = warp / 4;
+    float acc[BN / 2];
+#pragma unroll
+    for (int x = 0; x < BN / 2; ++x) acc[x] = 0.0f;
+    const uint32_t p_layout =
+        pw == 64 ? repro::SWIZZLE_128B : repro::SWIZZLE_64B;
+    constexpr uint32_t q_layout =
+        QW == 64 ? repro::SWIZZLE_128B : repro::SWIZZLE_64B;
+    for (int s = s0; s < s1; ++s) {
+      const int t = s - s0;
+      const int st = t % stages;
+      repro::mbar_wait(&full[st], (t / stages) & 1);
+      const uint8_t* sp = smem + st * stage_bytes + cw * 64 * pw * 2;
+      const uint8_t* sq = smem + st * stage_bytes + p_bytes;
+      repro::wgmma_fence();
+      for (int k = 0; k < bk; k += 16) {
+        repro::Wgmma<BN>::template ss<1>(
+            acc,
+            repro::smem_desc(sp + (k / pw) * BM * pw * 2 + (k % pw) * 2, 16,
+                             8 * pw * 2, p_layout),
+            repro::smem_desc(sq + k * QW * 2, bk * QW * 2, 8 * QW * 2,
+                             q_layout),
+            1);
+      }
+      repro::wgmma_commit();
+      // the previous block's products are done: release its stage
+      repro::wgmma_wait<1>();
+      if (t > 0) repro::mbar_arrive(&empty[(t - 1) % stages]);
+    }
+    repro::wgmma_wait<0>();
+    repro::fence_regs(acc);
+
+    const int tid = threadIdx.x % 128;
+    const int g = (tid % 32) / 4;
+    const int t4 = tid % 4;
+    const size_t row = (size_t)i * BM + cw * 64 + (tid / 32) * 16 + g;
+    __nv_bfloat16* zp = z + row * n + (size_t)j * BN + 2 * t4;
+#pragma unroll
+    for (int x = 0; x < BN / 8; ++x) {
+      *reinterpret_cast<__nv_bfloat162*>(zp + 8 * x) =
+          __floats2bfloat162_rn(acc[4 * x + 0], acc[4 * x + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(zp + 8 * (size_t)n + 8 * x) =
+          __floats2bfloat162_rn(acc[4 * x + 2], acc[4 * x + 3]);
+    }
+  }
+}
+
+template <int BM, int BN>
+int launch_wgmma(const void* blocks, const int* col_idx, const int* row_ptr,
+                 const void* q, void* z, int nnz, int m_blocks, int n, int k,
+                 int bk, int rows_fastest, cudaStream_t stream) {
+  constexpr int QW = BN < 64 ? BN : 64;
+  const uint32_t pw = bk < 64 ? bk : 64;
+  // P: the blocks as one [nnz * BM][bk] matrix, a box is one block's
+  // columns of one swizzle span; Q: [K][N], a box is bk rows of QW columns
+  CUtensorMap tm_p, tm_q;
+  const uint64_t p_dims[2] = {(uint64_t)bk, (uint64_t)nnz * BM};
+  const uint64_t p_strides[1] = {(uint64_t)bk * 2};
+  const uint32_t p_box[2] = {pw, BM};
+  int err = repro::make_tensor_map(&tm_p, blocks, 2, p_dims, p_strides, p_box,
+                                   pw * 2);
+  if (err != 0) return err;
+  const uint64_t q_dims[2] = {(uint64_t)n, (uint64_t)k};
+  const uint64_t q_strides[1] = {(uint64_t)n * 2};
+  const uint32_t q_box[2] = {QW, (uint32_t)bk};
+  err = repro::make_tensor_map(&tm_q, q, 2, q_dims, q_strides, q_box, QW * 2);
+  if (err != 0) return err;
+
+  const int stage_bytes = (BM * bk + bk * BN) * 2;
+  const int stages =
+      max(2, min(WG_MAX_STAGES, WgTile<BM>::SMEM_BUDGET / stage_bytes));
+  const int bytes = stages * stage_bytes + 2 * WG_MAX_STAGES * 8 + 1024;
+  static int smem_limit[64];
+  err = repro::raise_smem_limit(
+      reinterpret_cast<const void*>(bsr_spmm_wgmma_kernel<BM, BN>), bytes,
+      smem_limit);
+  if (err != 0) return err;
+  const long long grid = (long long)m_blocks * (n / BN);
+  if (grid > 0x7fffffffLL) return -1;
+  bsr_spmm_wgmma_kernel<BM, BN><<<(unsigned)grid, WgTile<BM>::NT, bytes,
+                                  stream>>>(
+      tm_p, tm_q, col_idx, row_ptr, static_cast<__nv_bfloat16*>(z), m_blocks,
+      n, bk, stages, rows_fastest);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM>
+int launch_wgmma_tile(const void* blocks, const int* col_idx,
+                      const int* row_ptr, const void* q, void* z, int nnz,
+                      int m_blocks, int n, int k, int bk, int bn,
+                      int rows_fastest, cudaStream_t stream) {
+  switch (bn) {
+    case 256:
+      return launch_wgmma<BM, 256>(blocks, col_idx, row_ptr, q, z, nnz, m_blocks, n, k, bk, rows_fastest, stream);
     case 128:
-      return launch_wmma_tile<128>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, stream);
+      return launch_wgmma<BM, 128>(blocks, col_idx, row_ptr, q, z, nnz, m_blocks, n, k, bk, rows_fastest, stream);
+    case 64:
+      return launch_wgmma<BM, 64>(blocks, col_idx, row_ptr, q, z, nnz, m_blocks, n, k, bk, rows_fastest, stream);
+    case 32:
+      return launch_wgmma<BM, 32>(blocks, col_idx, row_ptr, q, z, nnz, m_blocks, n, k, bk, rows_fastest, stream);
     default:
       return -1;
   }
@@ -286,19 +468,45 @@ int launch_bf16(const void* blocks, const int* col_idx, const int* row_ptr,
 
 }  // namespace
 
-// Plain C entry point.  Returns cudaGetLastError() of the launch, or -1
-// for a shape or type the kernel does not take.  Launches on `stream`,
-// allocates nothing, does not synchronise.
+// Routes, as numbered by the Python wrappers.
+enum { ROUTE_FMA = 0, ROUTE_WMMA = 1, ROUTE_WGMMA = 2 };
+
+// Plain C entry point; every operand contiguous and 16-byte aligned.
+// `route` and the column tile `bn` are the wrapper's choice:
+//   ROUTE_FMA   fp32 (any bm), bf16 with bm = 8;   bn 64 or 32
+//   ROUTE_WMMA  bf16 with bm = 16 or 32;           bn 64 or 32
+//   ROUTE_WGMMA bf16 with bm = 64 or 128;          bn 256, 128, 64 or 32
+// `rows_fastest` = 1 issues blocks block-row fastest, 0 column tile
+// fastest (wgmma only).  Returns cudaGetLastError() of the launch, or -1
+// for a route, shape or type the kernels do not take.  Launches on
+// `stream`, allocates nothing, does not synchronise.
 extern "C" int repro_bsr_spmm(const void* blocks, const int* col_idx,
                               const int* row_ptr, const void* q, void* z,
-                              int m_blocks, int n, int bm, int bk,
-                              int is_bf16, void* stream) {
-  if (m_blocks <= 0 || n <= 0 || n % 32 != 0) return -1;
-  if (bk <= 0 || bk % KC != 0) return -1;
-  if (n / 32 > 65535) return -1;
+                              int nnz, int m_blocks, int n, int k, int bm,
+                              int bk, int is_bf16, int route, int bn,
+                              int rows_fastest, void* stream) {
+  if (nnz <= 0 || m_blocks <= 0 || n <= 0 || bn <= 0 || n % bn != 0) return -1;
+  if (bk <= 0 || bk % KC != 0 || k <= 0 || k % bk != 0) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bf16(blocks, col_idx, row_ptr, q, z, m_blocks, n,
-                               bm, bk, st)
-                 : launch_fp32(blocks, col_idx, row_ptr, q, z, m_blocks, n,
-                               bm, bk, st);
+  if (route == ROUTE_FMA) {
+    if (n / bn > 65535) return -1;
+    return launch_fma(blocks, col_idx, row_ptr, q, z, m_blocks, n, bm, bk, bn,
+                      is_bf16, st);
+  }
+  if (route == ROUTE_WMMA && is_bf16) {
+    if (n / bn > 65535) return -1;
+    if (bm == 16)
+      return launch_wmma_tile<16>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, bn, st);
+    if (bm == 32)
+      return launch_wmma_tile<32>(blocks, col_idx, row_ptr, q, z, m_blocks, n, bk, bn, st);
+    return -1;
+  }
+  if (route == ROUTE_WGMMA && is_bf16) {
+    if (bm == 64)
+      return launch_wgmma_tile<64>(blocks, col_idx, row_ptr, q, z, nnz, m_blocks, n, k, bk, bn, rows_fastest, st);
+    if (bm == 128)
+      return launch_wgmma_tile<128>(blocks, col_idx, row_ptr, q, z, nnz, m_blocks, n, k, bk, bn, rows_fastest, st);
+    return -1;
+  }
+  return -1;
 }

@@ -12,41 +12,63 @@ package's ``kernels/flash_attention.py``.  On the H100 attention at
 ``hd = 128`` is bound by operations once ``S`` is a few hundred (each key
 and value is reused by every query row), so the design keeps everything
 but q, k, v and o out of device memory: one thread block per (batch*head,
-64-row query tile) carries the running max, running sum and fp32
-accumulator in registers across its own loop over key/value tiles, and the
-causal skip is that loop's bound.  bf16 inputs run both products on the
-tensor cores (``mma.sync`` m16n8k16 with ``ldmatrix`` fragment loads; the
-score tile never leaves registers); fp32 inputs run them on FMA
-arithmetic in full fp32.  Loads are synchronous; ``wgmma``, TMA and
-copy/compute overlap are later work (PERF.md has the times).  Forward
-only, as the TPU kernel.
+query tile) carries the running max, running sum and fp32 accumulator in
+registers across its own loop over key/value tiles, and the causal skip is
+that loop's bound.  :func:`flash_plan` picks the route from dtype and shape
+alone.  bf16 inputs take ``"wgmma"``: 128-row query tiles, a producer
+warpgroup that streams K and V tiles by TMA into two-stage rings in
+shared memory, and two consumer warpgroups that take turns on the tensor
+cores, each running both products with ``wgmma`` and its softmax while
+the other's products run (the score tile never leaves registers).  fp32
+inputs take
+``"fma"``: 64-row tiles, both products on FMA arithmetic in full fp32.
+Forward only, as the TPU kernel.
 
 :func:`flash_attention_plain` is the same blocked online softmax in plain
-PyTorch, tile for tile.
+PyTorch, tile for tile with the route's tile.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 NEG_INF = -1e30
-TILE = 64            # the kernel's query and key/value tile
+S_MULTIPLE = 64      # S must be a multiple of this (the fp32 kernel's tile)
 HD_CHOICES = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
+class FlashPlan(NamedTuple):
+    route: str   # a key of _build.ROUTES
+    tile: int    # query rows per block = keys per tile
+
+
+def flash_plan(dtype: torch.dtype, s: int, hd: int) -> FlashPlan:
+    """The kernel route and tile for inputs that :func:`_check` accepted:
+    bf16 on the tensor cores with 128-row tiles (a last tile that runs
+    past ``S`` reads zeros and is masked), fp32 on FMA arithmetic with
+    64-row tiles.  ``s`` and ``hd`` do not change the choice."""
+    if dtype == torch.bfloat16:
+        return FlashPlan("wgmma", 128)
+    return FlashPlan("fma", 64)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, tile: int = TILE
+                          *, causal: bool = True, tile: int | None = None
                           ) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: a loop over key/value
     tiles with a running max ``m``, running sum ``l`` and an fp32
     accumulator rescaled by ``exp(m_prev - m_cur)``, the causal loop
     bound per query tile, ``-1e30`` masking inside the diagonal tile and
-    a final division by ``max(l, 1e-30)``.  q/k/v: [B, H, S, hd]."""
+    a final division by ``max(l, 1e-30)``.  q/k/v: [B, H, S, hd]; ``tile``
+    defaults to the route's (:func:`flash_plan`)."""
     b, h, s, hd = q.shape
+    if tile is None:
+        tile = flash_plan(q.dtype, s, hd).tile
     scale = 1.0 / float(hd) ** 0.5
     qf, kf, vf = (t.float().reshape(b * h, s, hd) for t in (q, k, v))
     out = torch.empty((b * h, s, hd), dtype=torch.float32, device=q.device)
@@ -93,9 +115,8 @@ def _check(q, k, v, bq: int, bk: int) -> None:
     s, hd = q.shape[2], q.shape[3]
     if bq <= 0 or bk <= 0 or s % bq != 0 or s % bk != 0:
         raise ValueError(f"S={s} must be divisible by bq={bq} and bk={bk}")
-    if s % TILE != 0:
-        raise ValueError(f"S={s} must be a multiple of the kernel's tile "
-                         f"{TILE}")
+    if s % S_MULTIPLE != 0:
+        raise ValueError(f"S={s} must be a multiple of {S_MULTIPLE}")
     if hd not in HD_CHOICES:
         raise ValueError(f"hd={hd} unsupported: need hd in {HD_CHOICES}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -108,7 +129,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.repro_flash_attention
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
-            [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -119,8 +140,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q/k/v: [B, H, S, hd] -> [B, H, S, hd]; fp32 or bf16, hd 64 or 128.
 
     ``bq`` / ``bk`` are kept from the reference's signature with its
-    divisibility requirement; the kernel picks its own 64-row tile, so
-    ``S`` must also be a multiple of 64.
+    divisibility requirement; the kernel's tile is :func:`flash_plan`'s,
+    and ``S`` must also be a multiple of 64.
 
     CUDA tensors launch the CUDA kernel (or raise); CPU tensors take
     :func:`flash_attention_plain`.
@@ -129,17 +150,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal)
     b, h, s, hd = q.shape
+    plan = flash_plan(q.dtype, s, hd)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must start on a 16-byte boundary")
     o = torch.empty_like(q)
     lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with torch.cuda.device(q.device.index):
+        # the raw handle of PyTorch's current stream (what Triton's
+        # launcher reads): a Stream object costs more than the launch
+        stream = torch._C._cuda_getCurrentRawStream(q.device.index)
         err = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             b * h, s, hd, 1.0 / float(hd) ** 0.5, int(bool(causal)),
-            int(q.dtype == torch.bfloat16), stream)
+            int(q.dtype == torch.bfloat16), _build.ROUTES[plan.route], stream)
     if err != 0:
-        raise RuntimeError(
-            f"flash_attention kernel launch failed (code {err})")
+        raise RuntimeError(f"flash_attention kernel ({plan.route}) launch "
+                           f"failed (code {err})")
     flash_attention.launches += 1
     return o
 

@@ -5,6 +5,7 @@ interpret mode, as ``tests/test_kernels.py`` runs them, and versus the JAX
 ``ref.py`` oracles — same seeded numpy inputs, same shapes, same
 tolerances (fp32 1e-5; bf16 2e-2 for bsr_spmm, 3e-2 for flash_attention,
 compared in fp32)."""
+import re
 import sys
 import zlib
 
@@ -16,7 +17,9 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.bsr_spmm import bsr_spmm as jax_bsr_spmm
 from repro.kernels.flash_attention import flash_attention as jax_flash
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import bsr_spmm as bsr_mod
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -280,3 +283,95 @@ def test_importing_the_kernels_needs_neither_nvcc_nor_a_gpu():
     assert len(_build.source_hash()) == 16
     if shutil.which("nvcc") is None and not torch.cuda.is_available():
         assert not _build._LIBS
+
+
+# ---------------------------------------------------------------- routes
+# The wrappers pick each kernel's route and tile from dtype and shape alone
+# (bsr_plan, flash_plan); these tests hold that choice, and the set of
+# shapes the wrappers accept, which is the set the first CUDA kernels took.
+DTYPE_GRID = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _accepts(check, *args) -> bool:
+    try:
+        check(*args)
+    except ValueError:
+        return False
+    return True
+
+
+def _bsr_taken_before(dtype, bm, bk, n, bn) -> bool:
+    return (dtype in (torch.float32, torch.bfloat16)
+            and bm in (8, 16, 32, 64, 128) and bk in (32, 64, 128)
+            and n % 32 == 0 and n % bn == 0)
+
+
+def _bsr_expected(dtype, bm, n):
+    if dtype == torch.bfloat16 and bm >= 64:
+        return "wgmma", next(t for t in (256, 128, 64, 32) if n % t == 0)
+    route = "wmma" if dtype == torch.bfloat16 and bm >= 16 else "fma"
+    return route, 64 if n % 64 == 0 else 32
+
+
+@pytest.mark.parametrize("bm", [4, 8, 12, 16, 32, 48, 64, 96, 128, 256])
+@pytest.mark.parametrize("dtype", DTYPE_GRID)
+def test_bsr_route_and_accepted_shapes(dtype, bm):
+    idx = torch.zeros(1, dtype=torch.int32)
+    ptr = torch.tensor([0, 1], dtype=torch.int32)
+    for bk in (16, 32, 48, 64, 128, 256):
+        blocks = torch.empty((1, bm, bk), dtype=dtype)
+        for n in list(range(16, 1040, 16)) + [4096]:
+            q = torch.empty((bk, n), dtype=dtype)
+            for bn in (32, 128):
+                ok = _accepts(bsr_mod._check, blocks, idx, ptr, q, 1, bn)
+                assert ok == _bsr_taken_before(dtype, bm, bk, n, bn), \
+                    (bk, n, bn)
+            if _bsr_taken_before(dtype, bm, bk, n, 32):
+                plan = bsr_mod.bsr_plan(dtype, bm, bk, n)
+                assert (plan.route, plan.bn) == _bsr_expected(dtype, bm, n)
+                assert plan.rows_fastest == (plan.route != "wgmma"
+                                             or bm == 64)
+                assert n % plan.bn == 0
+
+
+@pytest.mark.parametrize("hd", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("dtype", DTYPE_GRID)
+def test_flash_route_and_accepted_shapes(dtype, hd):
+    for s in list(range(32, 1056, 32)) + [4096]:
+        x = torch.empty((1, 1, s, hd), dtype=dtype)
+        for bq, bk in ((64, 64), (128, 128), (64, 128)):
+            ok = _accepts(flash_mod._check, x, x, x, bq, bk)
+            assert ok == (dtype in (torch.float32, torch.bfloat16)
+                          and hd in (64, 128) and s % 64 == 0
+                          and s % bq == 0 and s % bk == 0), (s, bq, bk)
+        if dtype in (torch.float32, torch.bfloat16) and hd in (64, 128) \
+                and s % 64 == 0:
+            assert flash_mod.flash_plan(dtype, s, hd) == (
+                ("wgmma", 128) if dtype == torch.bfloat16 else ("fma", 64))
+
+
+def test_route_numbers_match_the_cuda_sources():
+    """Both C entry points number the routes as the wrappers do."""
+    for src in _build.sources():
+        enum = re.search(r"enum \{ (ROUTE_FMA = \d+, ROUTE_WMMA = \d+, "
+                         r"ROUTE_WGMMA = \d+) \};", src.read_text())
+        assert enum, src.name
+        got = {k.split("_", 1)[1].lower(): int(v) for k, v in
+               (kv.split(" = ") for kv in enum.group(1).split(", "))}
+        assert got == _build.ROUTES, src.name
+
+
+def test_plain_flash_uses_the_routes_tile():
+    """bf16 tiles of 128 rows and keys: the plain version follows the
+    kernel, and S = 192 (half a tile) works."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 192, 64)) * sc
+                                ).to(torch.bfloat16) for sc in (0.3, 0.3, 1.0))
+    for causal in (True, False):
+        o = flash_attention(q, k, v, causal=causal, bq=64, bk=64)
+        assert torch.equal(o, flash_attention_plain(q, k, v, causal=causal,
+                                                    tile=128))
+        o32 = tref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                       causal=causal)
+        np.testing.assert_allclose(o.float().numpy(), o32.numpy(), rtol=3e-2,
+                                   atol=3e-2)

@@ -10,9 +10,11 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+from repro_torch.kernels.bsr_spmm import (BsrPlan, bsr_plan, bsr_spmm,
+                                          bsr_spmm_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_plain)
+                                                 flash_attention_plain,
+                                                 flash_plan)
 from repro_torch.kernels.ref import dense_to_bsr
 
 pytestmark = pytest.mark.gpu
@@ -71,6 +73,75 @@ def test_bsr_spmm_kernel_matches_plain(cuda, m, k, n, bm, bk, bn, density,
         atol=tol * max(1.0, np.abs(z_ref).max()))
 
 
+# Where outputs are large sums or small averages, the bf16 limit follows the
+# values, as in chip_smoke.py: |a - b| <= 0.05 * rms(b) + 2**-6 * |b|.
+def assert_scaled_close(a, b):
+    a, b = a.float(), b.float()
+    atol = 0.05 * float(b.pow(2).mean().sqrt())
+    share = float(((a - b).abs() / (atol + 2.0 ** -6 * b.abs())).max())
+    assert atol > 0 and share <= 1.0, f"error is {share:.3g} of the limit"
+
+
+REPEATS = 3   # each edge case runs this often: a missing fence shows rarely
+
+
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("bk", [32, 64, 128])
+@pytest.mark.parametrize("n", [64, 96, 256, 512])
+def test_bsr_spmm_wgmma_edges(cuda, bm, bk, n):
+    """An empty block-row, a fully dense one (16 stored blocks: the ring
+    wraps several times) and a half-full one, on every column tile."""
+    assert bsr_plan(torch.bfloat16, bm, bk, n).route == "wgmma"
+    rng = np.random.default_rng(zlib.crc32(f"edge:{bm}:{bk}:{n}".encode()))
+    m, k = 3 * bm, 16 * bk
+    p = make_block_sparse(rng, m, k, bm, bk, 0.5)
+    p[0:bm] = 0
+    p[bm:2 * bm] = rng.standard_normal((bm, k))
+    q = rng.standard_normal((k, n)).astype(np.float32)
+    blocks, col_idx, row_ptr = dense_to_bsr(p, bm, bk)
+    args = (torch.as_tensor(blocks).to(cuda, torch.bfloat16),
+            torch.as_tensor(col_idx).to(cuda),
+            torch.as_tensor(row_ptr).to(cuda),
+            torch.as_tensor(q).to(cuda, torch.bfloat16))
+    zp = bsr_spmm_plain(*args, m_blocks=3)
+    z_ref = torch.as_tensor(p).bfloat16().float().to(cuda) @ args[3].float()
+    for _ in range(REPEATS):
+        z = bsr_spmm(*args, m_blocks=3, bn=32)
+        torch.cuda.synchronize()
+        assert float(z[0:bm].float().abs().max()) == 0.0
+        assert_scaled_close(z, zp)
+        assert_scaled_close(z, z_ref)
+
+
+def test_bsr_spmm_grid_orders_agree(cuda):
+    rng = np.random.default_rng(7)
+    p = make_block_sparse(rng, 512, 1024, 64, 64, 0.3)
+    q = rng.standard_normal((1024, 512)).astype(np.float32)
+    blocks, col_idx, row_ptr = dense_to_bsr(p, 64, 64)
+    args = (torch.as_tensor(blocks).to(cuda, torch.bfloat16),
+            torch.as_tensor(col_idx).to(cuda),
+            torch.as_tensor(row_ptr).to(cuda),
+            torch.as_tensor(q).to(cuda, torch.bfloat16))
+    a = bsr_spmm(*args, m_blocks=8)
+    assert bsr_plan(torch.bfloat16, 64, 64, 512).rows_fastest
+    b = bsr_spmm(*args, m_blocks=8, plan=BsrPlan("wgmma", 256, False))
+    assert torch.equal(a, b)
+    with pytest.raises(RuntimeError):          # no wgmma kernel for bm = 64
+        bsr_spmm(*args, m_blocks=8, plan=BsrPlan("wmma", 64))
+
+
+@pytest.mark.parametrize("bm", [8, 64, 128])
+def test_bsr_spmm_all_zero_bf16(cuda, bm):
+    blocks, col_idx, row_ptr = dense_to_bsr(
+        np.zeros((2 * bm, 256), np.float32), bm, 128)
+    q = torch.randn(256, 256, device=cuda, dtype=torch.bfloat16)
+    for _ in range(REPEATS):
+        z = ops.bsr_spmm(torch.as_tensor(blocks).bfloat16(), col_idx,
+                         row_ptr, q, m_blocks=2, bn=32, mode="kernel")
+        torch.cuda.synchronize()
+        assert z.dtype == torch.bfloat16 and float(z.abs().max()) == 0.0
+
+
 def test_bsr_spmm_all_zero(cuda):
     blocks, col_idx, row_ptr = dense_to_bsr(
         np.zeros((32, 256), np.float32), 8, 128)
@@ -100,6 +171,25 @@ def test_flash_attention_kernel_matches_plain(cuda, s, hd, causal, dtype):
         np.testing.assert_allclose(o.float().cpu().numpy(),
                                    other.float().cpu().numpy(),
                                    rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,h,s", [(1, 2, 192), (1, 2, 384), (1, 2, 4096)])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_wgmma_edges(cuda, b, h, s, hd, causal):
+    """Half a query tile (192, 384) and the long sequence, bf16."""
+    assert flash_plan(torch.bfloat16, s, hd).route == "wgmma"
+    gen = torch.Generator(device="cpu").manual_seed(s * hd + causal)
+    q, k, v = ((torch.randn((b, h, s, hd), generator=gen) * sc
+                ).to(cuda, torch.bfloat16) for sc in (0.3, 0.3, 1.0))
+    op = flash_attention_plain(q, k, v, causal=causal)
+    o32 = flash_attention_plain(q.float(), k.float(), v.float(),
+                                causal=causal)
+    for _ in range(REPEATS):
+        o = flash_attention(q, k, v, causal=causal, bq=64, bk=64)
+        torch.cuda.synchronize()
+        assert_scaled_close(o, op)
+        assert_scaled_close(o, o32)
 
 
 def test_flash_first_row_causal(cuda):
