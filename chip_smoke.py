@@ -13,9 +13,14 @@ where there is no CUDA device or the port's package is missing.  It
    GPU, then the kernel entry points (``kernels.ops``) at shapes of those
    workloads — and reads the counts: a kernel that was not launched fails
    the run;
-3. holds the GPU evaluator against the CPU one on 262,144 genomes per
+3. drives the fleet engine (``search.run_method_sweep`` / ``MultiSearch``):
+   one method grid four ways (device segments, host replay, per-task
+   dispatch, unpipelined) that must agree bit for bit, then all 28
+   Table III workloads at a budget of 20,000 as one fleet on one
+   signature, timed against the same searches run one after another;
+4. holds the GPU evaluator against the CPU one on 262,144 genomes per
    workload and measures its rows per second;
-4. holds each kernel against its plain PyTorch version on the card — the
+5. holds each kernel against its plain PyTorch version on the card — the
    reference's test shapes, the edges of each route's tiles (half a query
    tile, empty, fully dense and all-zero block-rows, every column tile) and
    the workload shapes — and times kernel, plain version and one library
@@ -92,6 +97,21 @@ def time_ms(fn, reps: int, flush) -> float:
     torch.cuda.synchronize()
     ts = sorted(a.elapsed_time(b) for a, b in pairs)
     return ts[len(ts) // 2]
+
+
+def wall_ms(fn, reps: int = 5) -> float:
+    """Median host-clock time of ``fn()`` that ends in its results on the
+    host, from a synchronised start: what a caller waits for one call."""
+    import torch
+    fn()
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ts)[len(ts) // 2]
 
 
 def graph_ms(fn, calls: int = 20) -> float:
@@ -171,6 +191,204 @@ def search_phase(device):
             dispatch_count=dispatches, s_per_dispatch=wall / dispatches))
     return dict(phase="search", device=str(device), warmup_s=warmup_s,
                 searches=rows)
+
+
+# ------------------------------------------------------------------- fleet
+
+FLEET_METHODS = ["sparsemap", "standard_es", "pso", "random_mapper"]
+FLEET_BUDGET = 20_000
+
+
+def _same_grid(a, b, what):
+    """Two run_method_sweep grids agree bit for bit."""
+    for m in a:
+        for w in a[m]:
+            x, y = a[m][w], b[m][w]
+            check(x.best_edp == y.best_edp and x.evals == y.evals
+                  and x.valid_evals == y.valid_evals
+                  and x.history.shape == y.history.shape
+                  and bool((x.history == y.history).all()),
+                  f"fleet parity: {m}/{w} differs between the default "
+                  f"fleet and {what} (best {x.best_edp} vs {y.best_edp}, "
+                  f"evals {x.evals} vs {y.evals}, valid {x.valid_evals} vs "
+                  f"{y.valid_evals})")
+
+
+def fleet_phase(device):
+    """The fleet engine on the card: (a) the same method grid four ways —
+    default (device segments, stacked, pipelined), host replay of the
+    segments, per-task dispatch, unpipelined — and each SparseMap task
+    alone, all bit for bit; (b) the 28 Table III workloads at the full
+    budget as one fleet against the same searches one after another."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_workloads import all_workloads, by_name
+    from repro_torch.core import search, torch_cost
+
+    # ---- (a) parity
+    wls = [by_name("mm1"), by_name("mm3")]
+    variants = [("default", {}), ("device_execute=False",
+                                  dict(device_execute=False)),
+                ("stack_batches=False", dict(stack_batches=False)),
+                ("pipeline=False", dict(pipeline=False))]
+    grids, parity = {}, []
+    for name, kw in variants:
+        stats = {}
+        t0 = time.perf_counter()
+        grids[name] = search.run_method_sweep(
+            FLEET_METHODS, wls, "cloud", budget=2000, seed=0,
+            **{**dict(stack_batches=True, device_rounds=4), **kw},
+            stats_out=stats)
+        torch.cuda.synchronize()
+        parity.append(dict(variant=name, wall_s=time.perf_counter() - t0,
+                           rounds=stats["rounds"],
+                           dispatches=stats["dispatches"],
+                           host_syncs=stats["host_syncs"],
+                           host_syncs_per_round=stats[
+                               "host_syncs_per_round"]))
+        check(stats["device"].startswith("cuda"), "fleet not on the GPU")
+        if name != "default":
+            _same_grid(grids["default"], grids[name], name)
+    for wl in wls:
+        alone = search.run("sparsemap", wl, "cloud", budget=2000, seed=0,
+                           device_rounds=4)
+        _same_grid({"sparsemap": {wl.name: grids["default"]["sparsemap"][
+            wl.name]}}, {"sparsemap": {wl.name: alone}},
+            "its standalone search.run")
+    grid_rows = [dict(method=m, workload=w, evals=r.evals,
+                      valid_evals=r.valid_evals,
+                      best_log10_edp=float(np.log10(r.best_edp)))
+                 for m, g in grids["default"].items() for w, r in g.items()]
+
+    # ---- (b) full width: one dispatch per round for all 28 searches
+    table3 = all_workloads()
+    run_segments, eval_stacked = torch_cost.run_segments, \
+        torch_cost.eval_stacked
+
+    def table3_fleet(**kw):
+        return search.MultiSearch(
+            [search.SearchTask(wl, "cloud", budget=FLEET_BUDGET, seed=0)
+             for wl in table3], search.FleetConfig(stack_batches=True, **kw))
+
+    t0 = time.perf_counter()
+    ms = table3_fleet()
+    fleet = ms.run()
+    torch.cuda.synchronize()
+    fleet_wall = time.perf_counter() - t0
+    stats = ms.stats
+    check(stats["device_rounds"] == 4 and
+          stats["device_rounds_source"] == "default:gpu",
+          f"fleet device rounds {stats['device_rounds']} "
+          f"({stats['device_rounds_source']}), expected 4 (default:gpu)")
+    check(len(stats["signatures"]) == 1,
+          f"Table III fleet spans {stats['signatures']}, expected one "
+          f"signature")
+    dpr = stats["dispatches"] / stats["rounds"]
+    check(dpr <= 1.0, f"{dpr} dispatches per round, expected <= 1")
+    check(stats["host_syncs_per_round"] <= 0.25 + 1e-9,
+          f"{stats['host_syncs_per_round']} host syncs per round in the "
+          f"segment phase, expected <= 1/4")
+    rows = []
+    for wl, name in zip(table3, ms.final_names):
+        res = fleet[name]
+        check(res.evals == FLEET_BUDGET,
+              f"{name}: {res.evals} evals != {FLEET_BUDGET}")
+        check(res.best_genome is not None and np.isfinite(res.best_edp),
+              f"{name}: the fleet found no valid design")
+        rep = search.report_best(wl, "cloud", res)
+        check(rep is not None and rep.valid,
+              f"{name}: the numpy oracle calls the best design invalid")
+        lg, lg_oracle = float(np.log10(res.best_edp)), float(np.log10(
+            rep.edp))
+        check(abs(lg - lg_oracle) <= LG_TOL * max(abs(lg_oracle), 1.0),
+              f"{name}: fleet log10 EDP {lg} vs oracle {lg_oracle}")
+        rows.append(dict(workload=wl.name, best_log10_edp=lg,
+                         oracle_log10_edp=lg_oracle,
+                         valid_fraction=res.valid_fraction))
+
+    # the same fleet with every segment replayed on the host, one
+    # generation a round: what the segments change, and bit parity at
+    # full width
+    t0 = time.perf_counter()
+    replay = table3_fleet(device_execute=False)
+    replayed = replay.run()
+    torch.cuda.synchronize()
+    replay_wall = time.perf_counter() - t0
+    _same_grid({"sparsemap": fleet}, {"sparsemap": replayed},
+               "the Table III fleet replayed on the host")
+
+    # the same 28 searches one after another, as a user without the fleet
+    # would run them
+    t0 = time.perf_counter()
+    seq = {wl.name: search.run("sparsemap", wl, "cloud",
+                               budget=FLEET_BUDGET, seed=0)
+           for wl in table3}
+    torch.cuda.synchronize()
+    seq_wall = time.perf_counter() - t0
+    for row in rows:
+        row["sequential_best_log10_edp"] = float(
+            np.log10(seq[row["workload"]].best_edp))
+
+    # the inputs of one segment and one stacked call of all 28 tasks, from
+    # a fleet of its own stepped until it has made both, outside every
+    # timed run
+    seen = {}
+
+    def keep_segments(models, segs, **kw):
+        if len(segs) == len(table3):
+            seen["seg"] = (list(models), list(segs))
+        return run_segments(models, segs, **kw)
+
+    def keep_stacked(models, batches, **kw):
+        if len(batches) == len(table3):
+            seen["stacked"] = (list(models), list(batches))
+        return eval_stacked(models, batches, **kw)
+
+    torch_cost.run_segments, torch_cost.eval_stacked = keep_segments, \
+        keep_stacked
+    try:
+        probe = table3_fleet()
+        probe.start()
+        while len(seen) < 2 and probe.step():
+            pass
+    finally:
+        torch_cost.run_segments, torch_cost.eval_stacked = run_segments, \
+            eval_stacked
+    check(len(seen) == 2, "the Table III fleet made no segment or no "
+          "stacked call of all its tasks")
+    models, segs = seen["seg"]
+    models_s, batches = seen["stacked"]
+
+    def one_segment():
+        return run_segments(models, segs)
+
+    def one_stacked():
+        return eval_stacked(models_s, batches)
+
+    seg_launches = count_device_launches(one_segment)
+    stacked_launches = count_device_launches(one_stacked)
+    return dict(
+        phase="fleet", device=str(device), parity=parity,
+        parity_grid=grid_rows,
+        table3=dict(
+            tasks=len(table3), budget=FLEET_BUDGET,
+            fleet_wall_s=fleet_wall, sequential_wall_s=seq_wall,
+            host_replay_fleet_wall_s=replay_wall,
+            host_replay_rounds=replay.stats["rounds"],
+            host_replay_dispatches=replay.stats["dispatches"],
+            rounds=stats["rounds"], host_syncs=stats["host_syncs"],
+            dispatches=stats["dispatches"], dispatches_per_round=dpr,
+            host_syncs_per_round=stats["host_syncs_per_round"],
+            host_blocked_s=stats["host_blocked_s"],
+            signature=list(stats["signatures"][0]),
+            pad_watermarks=stats["pad_watermarks"],
+            segment_tasks=len(segs), segment_rounds=segs[0].rounds,
+            device_ops_per_segment=seg_launches,
+            ms_per_segment=wall_ms(one_segment),
+            stacked_rows=sum(len(b) for b in batches),
+            device_ops_per_stacked_call=stacked_launches,
+            ms_per_stacked_call=wall_ms(one_stacked),
+            searches=rows))
 
 
 # --------------------------------------------------------------- main path
@@ -354,6 +572,10 @@ def evaluator_phase(device):
             check(min(margins, default=1.0) < CAP_MARGIN,
                   f"{wname}@{aname} row {i}: validity differs outside the "
                   f"capacity margin")
+        def on_device(raw):
+            return gpu.eval_device(gpu.layout.pad_rows(raw.long()))
+
+        raw128 = torch.from_numpy(G[:128].astype(np.int32)).to(device)
         rates = {}
         for bsz in (128, 4096, EVAL_ROWS):
             reps = 20 if bsz < EVAL_ROWS else 3
@@ -363,13 +585,27 @@ def evaluator_phase(device):
             for _ in range(reps):
                 gpu(G[:bsz])        # ends in a device->host copy: synced
             dt = (time.perf_counter() - t0) / reps
+            # the same int32 rows already on the card, no copy either way,
+            # through what __call__ runs there (cast, padding, evaluator):
+            # the time from the first operation to the last by CUDA events
+            # (at small batches still the host's time to issue them)
+            raw = torch.from_numpy(G[:bsz].astype(np.int32)).to(device)
+            a_ev = torch.cuda.Event(enable_timing=True)
+            b_ev = torch.cuda.Event(enable_timing=True)
+            a_ev.record()
+            for _ in range(reps):
+                on_device(raw)
+            b_ev.record()
+            torch.cuda.synchronize()
+            del raw
             rates[str(bsz)] = dict(ms_per_call=dt * 1e3,
-                                   rows_per_s=bsz / dt)
+                                   rows_per_s=bsz / dt,
+                                   device_ms_per_call=a_ev.elapsed_time(
+                                       b_ev) / reps)
         rows.append(dict(
             workload=wname, arch=aname, rows=EVAL_ROWS,
             device_launches_per_call=count_device_launches(
-                lambda: gpu.eval_device(
-                    torch.from_numpy(G[:128].astype(np.int32)).to(device))),
+                lambda: on_device(raw128)),
             valid_gpu=int(a["valid"].sum()), valid_cpu=int(b["valid"].sum()),
             valid_both=int(both.sum()), validity_flips=int(len(flips)),
             max_abs_dlog10_edp=float(err.max()) if err.size else 0.0,
@@ -714,6 +950,7 @@ def main(argv=None) -> int:
     bsr_cases, flash_cases = workload_cases(device)
     bsr_spmm.launches = 0
     flash_attention.launches = 0
+    t0 = time.perf_counter()
     report["search"] = search_phase(device)
     kernel_path(bsr_cases, flash_cases)
     launches = dict(bsr_spmm=bsr_spmm.launches,
@@ -721,11 +958,17 @@ def main(argv=None) -> int:
     for name, n in launches.items():
         check(n > 0, f"the main path never launched the {name} kernel")
     report["search"]["kernel_launches_on_main_path"] = launches
+    report["search"]["seconds"] = time.perf_counter() - t0
     emit(report["search"])
 
-    report["evaluator"] = evaluator_phase(device)
-    emit(report["evaluator"])
+    for name, phase in (("fleet", fleet_phase),
+                        ("evaluator", evaluator_phase)):
+        t0 = time.perf_counter()
+        report[name] = phase(device)
+        report[name]["seconds"] = time.perf_counter() - t0
+        emit(report[name])
 
+    t0 = time.perf_counter()
     checks = dict(bsr_spmm=bsr_checks(device, bsr_cases),
                   flash_attention=flash_checks(device, flash_cases))
     kernel_timings(device, bsr_cases, flash_cases)
@@ -733,8 +976,9 @@ def main(argv=None) -> int:
     table = kernel_table(bsr_cases, flash_cases, launches)
     report["kernels"] = dict(
         phase="kernels", checks_passed={k: len(v) for k, v in checks.items()},
-        checks=checks, kernels=table)
+        checks=checks, kernels=table, seconds=time.perf_counter() - t0)
     emit(dict(phase="kernels", card=card,
+              seconds=report["kernels"]["seconds"],
               checks_passed=report["kernels"]["checks_passed"],
               worst_check={k: max(v, key=lambda r: r["max_abs_err"])
                            for k, v in checks.items()}))

@@ -11,7 +11,7 @@ the evaluator's output dict, and returns an extras dict via
 ``StopIteration``.  The closed-form functions (``pso``, ``tbpsa``, ...)
 simply drive their generator against one evaluator; ``search.MultiSearch``
 instead round-robins a heterogeneous fleet of generators over shared
-jitted evaluators — optionally concatenating all same-signature pending
+batch evaluators — optionally concatenating all same-signature pending
 batches into one mega-batch dispatch per round.  ``make_requests`` is the
 registry entry point for callers.
 
@@ -611,9 +611,9 @@ def _factory_standard_es(spec: GenomeSpec, platform, budget: int,
 #: device-resident segments (COMPAT.md "Device-resident round protocol"):
 #: the ``evolve_requests`` family accepts ``device_rounds``/``rng_backend``
 #: through its ESConfig, and ``standard_es`` accepts ``device_rounds``
-#: directly — its direct-to-canonical translation now runs in-scan
-#: (``kind="direct"`` segments; COMPAT.md "standard_es segment protocol
-#: addendum").  The non-ES baselines (PSO/MCTS/TBPSA/PPO/DQN,
+#: directly — its direct-to-canonical translation runs inside the device
+#: segment (``kind="direct"`` segments, ``torch_cost.run_segments``;
+#: COMPAT.md "standard_es segment protocol addendum").  The non-ES baselines (PSO/MCTS/TBPSA/PPO/DQN,
 #: random_mapper) keep their per-round host paths; in a
 #: ``device_rounds=k`` fleet they run unchanged alongside segmented ES
 #: tasks.
@@ -628,130 +628,6 @@ SEGMENT_METHODS = frozenset({"sparsemap", "pfce_es", "sage_like",
 WARM_START_METHODS = frozenset({"sparsemap", "pfce_es", "sage_like"})
 RESUMABLE_METHODS = WARM_START_METHODS
 
-
-# ------------------- compile-ahead shape predictors (search.MultiSearch)
-
-
-def _es_cfg_for(method: str, budget: int, seed: int, kw: Dict) -> ESConfig:
-    """The ESConfig the method's factory would build — the factories'
-    default arithmetic, re-expressed for shape prediction."""
-    params = dict(kw)
-    for k in ("warm_seeds", "resume_state", "state_out"):
-        params.pop(k, None)       # runtime extras never reach ESConfig
-    if method == "sparsemap":
-        params.setdefault("pop_size", int(min(100, max(24, budget // 20))))
-    elif method == "sage_like":
-        base = dict(use_hshi=False, use_custom_ops=False, pop_size=64)
-        base.update(params)
-        params = base
-    elif method == "pfce_es":
-        base = dict(use_hshi=False, use_custom_ops=False)
-        base.update(params)
-        params = base
-    return ESConfig(budget=budget, seed=seed, **params)
-
-
-def round1_rows(method: str, spec: GenomeSpec, budget: int, seed: int,
-                **kw) -> Optional[int]:
-    """Row count of the FIRST batch ``method``'s request generator will
-    yield — the signature ``MultiSearch`` AOT-compiles ahead of round 1
-    while the host runs the prologue.  ``None`` means the first round is
-    not predictable (no job is scheduled; the dispatch falls back to
-    ordinary jit and does NOT count as a compile-ahead miss unless the
-    method's family was claimed)."""
-    from .evolution import calib_plan
-    if method in ("sparsemap", "pfce_es", "sage_like"):
-        cfg = _es_cfg_for(method, budget, seed, kw)
-        if cfg.use_hshi or cfg.use_custom_ops:
-            n_ctx, n_smp = calib_plan(spec.length, cfg)
-            return n_ctx * n_smp * spec.length
-        return cfg.pop_size
-    if method == "standard_es":
-        # the first yield is the TRANSLATABLE subset of the seeded random
-        # population — data-dependent, so simulate it exactly (cheap
-        # numpy work on <= pop_size rows, same seed => same subset)
-        from .direct_encoding import DirectValueSpec
-        dspec = DirectValueSpec(spec)
-        rng = np.random.default_rng(seed)
-        pop = dspec.random_genomes(rng, int(kw.get("pop_size", 100)))
-        _, index = dspec.translate_batch(pop)
-        return len(index) or None
-    if method == "random_mapper":
-        return min(512, budget)
-    if method == "pso":
-        return int(kw.get("n_particles", 50))
-    if method == "mcts":
-        return min(int(kw.get("rollout_batch", 16)), budget)
-    if method == "tbpsa":
-        return min(int(kw.get("llambda", 48)), budget)
-    if method == "ppo":
-        return min(int(kw.get("batch", 64)), budget)
-    if method == "dqn":
-        return min(int(kw.get("batch", 32)), budget)
-    return None
-
-
-def steady_rows(method: str, spec: GenomeSpec, budget: int, seed: int,
-                **kw) -> Optional[Tuple[int, ...]]:
-    """Candidate per-round batch sizes ``method`` submits AFTER round 1
-    — the decayed steady-state shapes the pad-watermark eventually
-    settles on.  ``()`` means the task exhausts its budget in round 1
-    and contributes nothing to later mega-batches; ``None`` means the
-    steady shape is not predictable (the signature group then gets no
-    steady-state job).  ES methods return (init-pop, children-per-gen):
-    the post-calibration population round and the elitist per-generation
-    child batch — the two shapes every later round is built from."""
-    r1 = round1_rows(method, spec, budget, seed, **kw)
-    if r1 is None:
-        return None
-    if method in ("sparsemap", "pfce_es", "sage_like"):
-        # the ES generators always seed a population and run generations
-        # once started, even when calibration consumed the paper budget
-        cfg = _es_cfg_for(method, budget, seed, kw)
-        n_elite = max(1, int(cfg.pop_size * cfg.elite_frac))
-        return (cfg.pop_size, cfg.pop_size - n_elite)
-    if method == "standard_es":
-        return None     # translatable-subset row counts are data-dependent
-    remaining = budget - r1
-    if remaining <= 0:
-        return ()
-    if method == "random_mapper":
-        return (min(512, remaining),)
-    if method == "pso":
-        return (int(kw.get("n_particles", 50)),)
-    if method == "mcts":
-        return (min(int(kw.get("rollout_batch", 16)), remaining),)
-    if method == "tbpsa":
-        return (min(int(kw.get("llambda", 48)), remaining),)
-    if method == "ppo":
-        return (min(int(kw.get("batch", 64)), remaining),)
-    if method == "dqn":
-        return (min(int(kw.get("batch", 32)), remaining),)
-    return None
-
-
-def segment_plan(method: str, spec: GenomeSpec, budget: int, seed: int,
-                 **kw) -> Optional[Dict]:
-    """Predicted :func:`es_ops.segment_shape_key` fields for a segmented
-    task (``device_rounds > 1``), or ``None`` when the method will not
-    yield DeviceSegments.  Feeds ``torch_cost.scan_compile_job`` /
-    ``direct_scan_compile_job``."""
-    rounds = int(kw.get("device_rounds", 1) or 1)
-    if rounds <= 1 or method not in SEGMENT_METHODS:
-        return None
-    if method == "standard_es":
-        B = int(kw.get("pop_size", 100))
-        return dict(B=B, rounds=rounds,
-                    n_parents=max(2, int(B * kw.get("parent_frac", 0.4))),
-                    n_elite=max(1, int(B * kw.get("elite_frac", 0.1))),
-                    genes_per=2, kind="direct", restart=0)
-    cfg = _es_cfg_for(method, budget, seed, kw)
-    B = cfg.pop_size
-    return dict(B=B, rounds=rounds,
-                n_parents=max(2, int(B * cfg.parent_frac)),
-                n_elite=max(1, int(B * cfg.elite_frac)),
-                genes_per=cfg.genes_per_mutation, kind="es",
-                restart=int(cfg.stagnation_restart or 0))
 
 #: method name -> (spec, platform, budget, seed, **kw) -> (Requests, _Budget)
 REQUEST_METHODS: Dict[str, Callable] = {

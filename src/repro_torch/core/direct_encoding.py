@@ -23,7 +23,7 @@ closed-form :func:`direct_standard_es` and as the request generator
 :func:`direct_requests` (the ``standard_es`` entry in
 ``baselines.REQUEST_METHODS``): the generator yields CANONICAL genome
 batches for the translatable rows, so a ``search.MultiSearch`` fleet can
-evaluate them on the shared jitted evaluator alongside every other
+evaluate them on the shared batch evaluator alongside every other
 method; untranslatable rows are charged to the budget as invalid without
 costing, exactly like the closed-form path.
 """
@@ -228,7 +228,7 @@ def direct_requests(spec: GenomeSpec, tracker: "_Budget", seed: int,
     yields ``kind="direct"`` :class:`~.es_ops.DeviceSegment` requests
     whose pre-drawn plans cover k generations; ``torch_cost`` runs the
     whole fold — including the direct-to-canonical translation — as one
-    scanned dispatch, pipelined one round late exactly like the main
+    segment dispatch, pipelined one round late exactly like the main
     ES's ``_segment_requests`` (COMPAT.md "standard_es segment
     protocol").  Selection then uses the stable f32 fitness order shared
     with the device kernel (the legacy per-round loop keeps its unstable
@@ -296,7 +296,7 @@ def _direct_segment_requests(spec: GenomeSpec, dspec: DirectValueSpec,
     ``kind="direct"`` :class:`~.es_ops.DeviceSegment` requests whose
     ``aux`` carries the translation tables (permutation scramble and
     dimension sizes) so ``torch_cost`` can run crossover, mutation,
-    direct-to-canonical translation AND evaluation as one scanned
+    direct-to-canonical translation AND evaluation as one segment
     dispatch.  Pipelined one round late exactly like
     ``evolution._segment_requests`` (COMPAT.md "Pipelined dispatch
     contract"): the response for segment N is stashed unresolved, segment

@@ -26,7 +26,7 @@ The module also defines the **device-segment protocol** types
 (:class:`DeviceSegment`, :class:`SegmentResult`) that request generators
 yield when ``ESConfig.device_rounds > 1``, and :class:`PaddedLayout`,
 the genome-column padding that lets same-signature workloads with
-different prime counts share one scan program (pad columns are
+different prime counts share one dispatch (pad columns are
 numerically inert: value 0, upper bound 1).
 
 This module is the ONE sanctioned home for raw RNG in ``repro_torch.core``:
@@ -200,20 +200,28 @@ def _index(t):
     return t if t.dtype in (torch.int64, torch.bool) else t.long()
 
 
+def _take_rows(x, idx):
+    """``x[..., idx[...], :]`` for a torch ``x (..., N, L)`` and index
+    ``idx (..., M)``: whole rows gathered per leading index."""
+    return x.gather(-2, idx[..., None].expand(*idx.shape, x.shape[-1]))
+
+
 def apply_crossover(parents, ab, cuts):
     """Assemble all children from a crossover plan.  Works on numpy
     arrays and on ``torch.Tensor``s (the index grid + ``where``
     formulation is shared; plan tensors must live on ``parents``'
-    device)."""
-    L = parents.shape[1]
+    device).  The torch form also takes a leading task axis —
+    ``parents (T, P, L)``, ``ab (T, C, 2)``, ``cuts (T, C)`` — as the
+    device segments (``torch_cost.run_segments``) use it."""
+    L = parents.shape[-1]
     if isinstance(parents, np.ndarray):
         col = np.arange(L)[None, :]
         return np.where(col < cuts[:, None], parents[ab[:, 0]],
                         parents[ab[:, 1]])
-    col = torch.arange(L, device=parents.device)[None, :]
+    col = torch.arange(L, device=parents.device)
     ab = _index(ab)
-    return torch.where(col < cuts[:, None], parents[ab[:, 0]],
-                       parents[ab[:, 1]])
+    return torch.where(col < cuts[..., None], _take_rows(parents, ab[..., 0]),
+                       _take_rows(parents, ab[..., 1]))
 
 
 def apply_mutation(genomes, active, gene, vals):
@@ -221,40 +229,49 @@ def apply_mutation(genomes, active, gene, vals):
     overwrite in draw order — the apply walks the ``genes_per`` columns
     sequentially (each column's row indices are unique, so the order is
     deterministic for the torch indexed write too).  Returns a new
-    array; the input is not modified."""
-    n, genes_per = gene.shape
+    array; the input is not modified.  The torch form also takes a
+    leading task axis (``genomes (T, C, L)``, plan ``(T, C, ...)``)."""
+    genes_per = gene.shape[-1]
     if isinstance(genomes, np.ndarray):
         out = genomes.copy()
-        rows = np.arange(n)
+        rows = np.arange(len(gene))
         for j in range(genes_per):
             g = gene[:, j]
             out[rows, g] = np.where(active, vals[:, j], out[rows, g])
         return out
-    out = genomes.clone()
-    rows = torch.arange(n, device=genomes.device)
+    out = genomes
     gene = _index(gene)
     vals = vals.to(out.dtype)
     for j in range(genes_per):
-        g = gene[:, j]
-        out[rows, g] = torch.where(active, vals[:, j], out[rows, g])
+        g = gene[..., j:j + 1]
+        out = out.scatter(-1, g, torch.where(active[..., None],
+                                             vals[..., j:j + 1],
+                                             out.gather(-1, g)))
     return out
 
 
 def stable_order(edp):
-    """Stable fitness order, shared by the device scan and the host
+    """Stable fitness order, shared by the device segment and the host
     fallback so a segment's trajectory is caller-invariant.  (The legacy
     per-round host loop keeps ``np.argsort``'s default introsort; the two
-    differ only in tie order.)"""
+    differ only in tie order.)  Sorts along the last axis; ``inf`` and
+    ``NaN`` go last, ties keep their index order, in both forms."""
     if isinstance(edp, np.ndarray):
         return np.argsort(edp, kind="stable")
-    return torch.sort(edp, stable=True).indices
+    return torch.sort(edp, dim=-1, stable=True).indices
 
 
 def select(pop, edp, n_parents: int, n_elite: int):
-    """Elitist truncation selection: (parents, elites, elite_edp)."""
+    """Elitist truncation selection: (parents, elites, elite_edp).  The
+    torch form also takes a leading task axis (``pop (T, B, L)``,
+    ``edp (T, B)``)."""
     order = stable_order(edp)
-    return (pop[order[:n_parents]], pop[order[:n_elite]],
-            edp[order[:n_elite]])
+    if isinstance(pop, np.ndarray):
+        return (pop[order[:n_parents]], pop[order[:n_elite]],
+                edp[order[:n_elite]])
+    return (_take_rows(pop, order[..., :n_parents]),
+            _take_rows(pop, order[..., :n_elite]),
+            edp.gather(-1, order[..., :n_elite]))
 
 
 def best_so_far(edp):
@@ -269,7 +286,7 @@ def best_so_far(edp):
 
 class PaddedLayout:
     """Column padding that maps a spec's canonical genome layout
-    ``[perm | tiling(n_primes) | fmt | sg]`` onto the scan program's
+    ``[perm | tiling(n_primes) | fmt | sg]`` onto the signature's
     shared layout ``[perm | tiling(n_pad) | fmt | sg]``.  Pad columns are
     inert (value 0, upper bound 1); gene indices and cut positions at or
     beyond the tiling boundary shift by ``delta = n_pad - n_primes``."""
@@ -288,13 +305,26 @@ class PaddedLayout:
             np.arange(self.boundary),
             np.arange(self.boundary + self.delta, self.Lp)])
 
-    def pad_rows(self, g: np.ndarray) -> np.ndarray:
-        out = np.zeros(g.shape[:-1] + (self.Lp,), dtype=g.dtype)
-        out[..., self.cols] = g
+    # Rows move as two contiguous slices, not through ``cols``: a fancy
+    # column index copies element by element, which at the evaluator's
+    # largest batches costs more host time than the device's work.
+    def pad_rows(self, g, out=None):
+        """Pad numpy rows, or ``torch.Tensor`` rows on their device.  With
+        ``out`` (zero in the pad columns) the rows are written there, cast
+        to its dtype, and ``out`` is returned."""
+        shape = tuple(g.shape[:-1]) + (self.Lp,)
+        if out is None:
+            out = g.new_zeros(shape) if isinstance(g, torch.Tensor) else \
+                np.zeros(shape, dtype=g.dtype)
+        b = self.boundary
+        out[..., :b] = g[..., :b]
+        out[..., b + self.delta:] = g[..., b:]
         return out
 
     def unpad_rows(self, gp: np.ndarray) -> np.ndarray:
-        return np.ascontiguousarray(gp[..., self.cols])
+        b = self.boundary
+        return np.concatenate([gp[..., :b], gp[..., b + self.delta:]],
+                              axis=-1)
 
     def pad_index(self, idx: np.ndarray) -> np.ndarray:
         """Gene indices: positions at/after the boundary shift up."""
@@ -337,15 +367,15 @@ class DeviceSegment:
     rng_backend: str = "numpy"
     # pipelined dispatch (COMPAT.md "Pipelined dispatch contract"):
     # ``carry`` holds the previous segment's device-resident PADDED
-    # (pop, edp) pair — when set, callers feed the scan from it directly
+    # (pop, edp) pair — when set, callers start the segment from it
     # and ``pop``/``edp`` are only the host-side fallback of record.
     carry: Optional[Tuple] = None
     # segment flavor: "es" runs in canonical genome coordinates;
     # "direct" carries direct-value genomes plus the translation tables
-    # in ``aux`` (scramble, dim_sizes) and translates rows in-scan.
+    # in ``aux`` (scramble, dim_sizes) and translates rows in the segment.
     kind: str = "es"
     aux: Optional[Dict[str, np.ndarray]] = None
-    # stagnation restart folded into the scan: re-init the non-elite
+    # stagnation restart folded into the segment: re-init the non-elite
     # population after ``restart`` generations without improvement of the
     # carried float32 best (0 = off).  ``state`` is the (best, since)
     # carry across segments; ``draws["fresh"]`` holds the pre-drawn
@@ -386,7 +416,7 @@ class SegmentResult:
 
 def segment_shape_key(seg: DeviceSegment) -> Tuple:
     """Tasks whose segments share this key (plus the evaluator
-    signature) can stack into one scan dispatch."""
+    signature) stack into one ``torch_cost.run_segments`` dispatch."""
     return (len(seg.pop), seg.rounds, seg.n_parents, seg.n_elite,
             seg.genes_per, getattr(seg, "kind", "es"),
             getattr(seg, "restart", 0))

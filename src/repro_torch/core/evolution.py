@@ -72,7 +72,7 @@ class ESConfig:
     # different stream, the counterpart of the JAX package's
     # "threefry").  stagnation_restart > 0 no
     # longer forces the per-round path: restart segments pre-draw one
-    # fresh LHS block per generation and the scan adopts it via a
+    # fresh LHS block per generation and the segment adopts it via a
     # re-init branch on the carried (best-so-far, stagnant-gens) state
     # — a different rng consumption order than the host-adaptive
     # device_rounds=1 restart, by design (fixed shapes need the draws
@@ -317,9 +317,8 @@ def crossover(parents: np.ndarray, n_children: int, spec: GenomeSpec,
 def calib_plan(length: int, cfg: ESConfig) -> tuple:
     """The (n_contexts, n_samples) the sensitivity calibration actually
     uses after shrinking to keep init+calibration under ~10% of the
-    budget.  Shared with the compile-ahead shape predictors: the probe
-    batch the generator's FIRST yield carries has exactly
-    ``n_ctx * n_smp * length`` rows."""
+    budget.  The probe batch the generator's FIRST yield carries has
+    exactly ``n_ctx * n_smp * length`` rows."""
     calib_target = max(int(0.10 * cfg.budget), 2 * length)
     n_ctx = cfg.calib_contexts
     n_smp = cfg.calib_samples
@@ -341,7 +340,7 @@ def evolve_requests(spec: GenomeSpec, cfg: ESConfig, tracker: _Budget,
 
     This is the primitive both :func:`evolve` (single search) and
     ``search.MultiSearch`` (many concurrent searches round-robined over
-    shared jitted evaluators) are built on.  Returns the extras dict via
+    shared batch evaluators) are built on.  Returns the extras dict via
     ``StopIteration.value``; all bookkeeping lives in ``tracker``.
 
     Checkpoint/resume (the sweep server's durability contract): pass a
@@ -357,7 +356,7 @@ def evolve_requests(spec: GenomeSpec, cfg: ESConfig, tracker: _Budget,
     the resumed trajectory equals the uninterrupted one at fixed seeds.
     No ``state_out["resume"]`` exists until the first main-loop
     generation (the HSHI/calibration prologue is cheap to replay from
-    scratch).  Resume requires ``device_rounds == 1`` — pipelined scan
+    scratch).  Resume requires ``device_rounds == 1`` — pipelined device
     segments keep populations device-resident and are not cleanly
     checkpointable at a generation boundary.
     """
@@ -372,7 +371,7 @@ def evolve_requests(spec: GenomeSpec, cfg: ESConfig, tracker: _Budget,
     if resume is not None:
         if cfg.device_rounds > 1:
             raise ValueError(
-                "resume requires device_rounds == 1: scan segments keep "
+                "resume requires device_rounds == 1: device segments keep "
                 "populations device-resident with no generation-boundary "
                 "checkpoint (COMPAT.md 'Sweep server protocol')")
         rng.bit_generator.state = resume["rng_state"]
@@ -524,7 +523,7 @@ def _segment_requests(spec: GenomeSpec, cfg: ESConfig, tracker: _Budget,
     operator choices.  Selection uses the shared *stable* fitness order
     (``es_ops.stable_order``) in both paths; the legacy per-round loop's
     unstable ``np.argsort`` can differ on ties, which is one of the two
-    test-pinned parity seams (the other: in-scan float32 EDP vs the
+    test-pinned parity seams (the other: in-segment float32 EDP vs the
     host-recomputed canonical EDP).
 
     PIPELINED DISPATCH (COMPAT.md "Pipelined dispatch contract"): this
@@ -633,7 +632,7 @@ def _restart_segment_requests(spec: GenomeSpec, cfg: ESConfig,
                               total_gens: int) -> Requests:
     """Device-resident rounds WITH stagnation restart: each segment
     additionally pre-draws one fresh LHS block per generation (fixed
-    shapes — the scan always evaluates it but only ADOPTS it when the
+    shapes — the segment always evaluates it but only ADOPTS it when the
     carried stagnation counter trips; only adopted blocks are
     registered, so the eval budget is spent exactly like an adaptive
     restart).  The carried (best-so-far f32, stagnant-generations)

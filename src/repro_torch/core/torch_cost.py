@@ -6,10 +6,25 @@ that evaluates a whole *population* of genomes in one call on one device.
 The numpy implementation is the exact float64 oracle; this one is held to
 it at ``|dlog10_edp| <= 2e-3 * max(|log10_edp|, 1)`` with validity equal
 outside a 5e-3 relative capacity margin (tests/test_torch_cost.py).  It is
-the counterpart of the JAX package's ``jax_cost.JaxCostModel``, restricted
-to the broadcast path (one workload per call); the mega-batched, scanned
-and sharded dispatch paths of that module are not part of this package
-yet.
+the counterpart of the JAX package's ``jax_cost`` module, and one row
+evaluator (:func:`eval_batch`, workload constants with a leading row axis)
+serves its three dispatch paths:
+
+* the broadcast call ``TorchCostModel(genomes)`` — one workload, its
+  constants a single row broadcast over the batch;
+* :func:`eval_stacked` — same-signature batches of many workloads and
+  platforms concatenated into one padded mega-batch, each row given its
+  workload's constants by a row-to-task index (``search.MultiSearch``);
+* :func:`run_segments` — k ES generations of T same-shape tasks advanced
+  on the device (selection, crossover, mutation, evaluation of the T·C
+  children) with no host sync inside the segment, populations carried on
+  the device from one segment to the next.
+
+Because every row runs the same per-row arithmetic whatever batch it sits
+in, the three paths give bit-identical results for the same rows; the one
+operation whose CPU result depended on a row's position (float32 ``pow``,
+vectorised body vs scalar tail) is evaluated in float64 (:func:`_pow`).
+The multi-device (sharded) paths of the reference are not ported.
 
 Structure vs numbers: the arch's *structure* (loop-slot count, store
 tables, S/G site wiring, NoC multicast/reduction shape, which parameters
@@ -35,25 +50,32 @@ plus a sum over the slot axis (all three tensors at once) instead of a
 per-slot loop, so one evaluator call is a few hundred device launches
 whatever the workload's rank.
 
-Nothing in ``__call__`` synchronises except the two copies: the genome
-batch goes to the device in one copy, and one ``(3, B)`` float32 tensor
-(valid, energy, cycles) comes back in one copy.
+Genome rows reach the evaluator in the padded layout of
+``es_ops.PaddedLayout`` (``[perm | tiling(n_pad) | fmt | sg]``), the layout
+every workload of one signature shares.  A dispatch makes one host→device
+copy of its inputs (from pinned memory, so it does not wait for work
+already queued) and one device→host copy of its outputs, queued behind
+the work and waited for only when the caller reads them.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from functools import lru_cache
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
 from . import density as density_lib
+from . import es_ops
 from .accel import Platform
 from .arch import ArchSpec, Topology, as_arch
 from .encoding import GenomeSpec, all_permutations
+from .es_ops import (DeviceSegment, PaddedLayout, SegmentResult,
+                     segment_shape_key)
 from .sparse import MAX_FMT_GENES
 from .workload import WORD_BYTES
 
@@ -73,10 +95,12 @@ def _bucket(n: int, size: int = 16) -> int:
     return ((n + size - 1) // size) * size
 
 
-# Evaluator calls issued through TorchCostModel since the last reset — the
-# per-round dispatch-count hook.  One lock guards the counter so callers
-# may call evaluators from worker threads.
+# Evaluator dispatches issued since the last reset — the per-round
+# dispatch-count hook — and the seconds the host spent blocked waiting for
+# device results.  One lock guards every module-level counter and cache so
+# callers may dispatch from worker threads.
 _DISPATCHES = 0
+_HOST_BLOCKED_S = 0.0
 _LOCK = threading.Lock()
 
 
@@ -87,8 +111,9 @@ def _count_dispatch() -> None:
 
 
 def dispatch_count() -> int:
-    """Evaluator calls issued since the last reset (each batched
-    ``TorchCostModel.__call__`` is one dispatch)."""
+    """Evaluator dispatches issued since the last reset: each broadcast
+    ``TorchCostModel.__call__``, each :func:`eval_stacked` mega-batch and
+    each :func:`run_segments` call is one."""
     with _LOCK:
         return _DISPATCHES
 
@@ -97,6 +122,31 @@ def reset_dispatch_count() -> None:
     global _DISPATCHES
     with _LOCK:
         _DISPATCHES = 0
+
+
+def _time_block(fn: Callable):
+    """Run a thunk that waits for device results, charging its wall clock
+    to the host-blocked accumulator."""
+    global _HOST_BLOCKED_S
+    t0 = time.perf_counter()
+    out = fn()
+    dt = time.perf_counter() - t0
+    with _LOCK:
+        _HOST_BLOCKED_S += dt
+    return out
+
+
+def host_blocked_s() -> float:
+    """Seconds the host spent blocked waiting for device results since the
+    last reset."""
+    with _LOCK:
+        return _HOST_BLOCKED_S
+
+
+def reset_host_blocked_s() -> None:
+    global _HOST_BLOCKED_S
+    with _LOCK:
+        _HOST_BLOCKED_S = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,14 +267,26 @@ def _topo_tables(topo: Topology) -> _TopoTables:
 # fingerprint is part of the signature).
 
 
+def _pow(base: torch.Tensor, exp: torch.Tensor) -> torch.Tensor:
+    """float32 ``base ** exp``, computed in float64 and rounded once.
+
+    On the CPU, torch's float32 ``pow`` takes a vectorised routine for the
+    body of a buffer and the scalar one for its tail, and the two differ
+    by an ulp on some inputs, so a row's result would depend on where it
+    sits in the batch.  Rounded from float64 the result no longer depends
+    on its position (nor, in practice, on the routine), which is what
+    makes the broadcast, stacked and segment paths bit-identical."""
+    return torch.pow(base.double(), exp.double()).float()
+
+
 def _occ_uniform(row, e):
-    return 1.0 - torch.pow(1.0 - row[2], torch.clamp(e, min=1.0))
+    return 1.0 - _pow(1.0 - row[2], torch.clamp(e, min=1.0))
 
 
 def _occ_banded(row, e):
     cov = torch.clamp(row[3], min=1e-30)
     d_in = torch.clamp(row[2] / cov, 0.0, 1.0)
-    return cov * (1.0 - torch.pow(1.0 - d_in, torch.clamp(e, min=1.0)))
+    return cov * (1.0 - _pow(1.0 - d_in, torch.clamp(e, min=1.0)))
 
 
 def _occ_block_nm(row, e):
@@ -335,14 +397,18 @@ def eval_batch(tt: _TopoTables, tb: _Tables, structured: bool,
                z_onehot: torch.Tensor, plat: torch.Tensor,
                dens_params: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The row cost evaluator on a ``(B, ...)`` batch: one workload's
-    constants broadcast over the rows.
+    """The row cost evaluator on a ``(B, ...)`` batch.
 
     ``perm_genes (B, NL)``, ``assign (B, n_pad)``, ``fmt_genes (B, 3,
-    MAX_FMT_GENES)`` and ``sg (B, n_sites)`` are int64; the workload
-    constants are float32 (``relevance`` bool, ``prime_dim`` int64).
-    Returns ``(valid, energy_pj, cycles)``, each ``(B,)``, energy and
-    cycles ``inf`` on invalid rows."""
+    MAX_FMT_GENES)`` and ``sg (B, n_sites)`` are int64.  The nine workload
+    constants carry a leading row axis of length R: R == 1 broadcasts one
+    workload over the batch, R == B gives every row its own workload and
+    platform (the stacked and segment paths).  Per row they are
+    ``primes (n_pad,)`` float32, ``prime_dim (n_pad,)`` int64,
+    ``relevance (3, d)`` bool, ``densities``, ``full_elems`` and
+    ``z_onehot (3,)``, ``total_macs ()``, ``plat (P,)`` and
+    ``dens_params (3, C)`` float32.  Returns ``(valid, energy_pj,
+    cycles)``, each ``(B,)``, energy and cycles ``inf`` on invalid rows."""
     NL, NE = tt.n_levels, tt.n_edges
     d = tb.dim_ids.shape[0]
     B = perm_genes.shape[0]
@@ -351,10 +417,11 @@ def eval_batch(tt: _TopoTables, tb: _Tables, structured: bool,
 
     # ---- tiling factors (B, NL, d) ----
     lvl_eq = assign[:, None, :] == tb.level_ids[None, :, None]  # (B,NL,np)
-    dim_eq = prime_dim[None, :] == tb.dim_ids[:, None]          # (d, np)
-    mask = lvl_eq[:, :, None, :] & dim_eq[None, None, :, :]     # (B,NL,d,np)
+    dim_eq = prime_dim[:, None, :] == tb.dim_ids[None, :, None]  # (R,d,np)
+    mask = lvl_eq[:, :, None, :] & dim_eq[:, None, :, :]        # (B,NL,d,np)
     one = primes.new_ones(())
-    factors = torch.where(mask, primes, one).prod(dim=-1)       # (B, NL, d)
+    factors = torch.where(mask, primes[:, None, None, :], one
+                          ).prod(dim=-1)                        # (B, NL, d)
 
     # ---- flattened loops (B, nl) ----
     loop_dims = tb.perm_table[perm_genes]                       # (B, NL, d)
@@ -365,14 +432,15 @@ def eval_batch(tt: _TopoTables, tb: _Tables, structured: bool,
 
     fanouts = [factors[:, lvl, :].prod(dim=-1)
                for lvl in tt.spatial_levels]                    # each (B,)
-    rel_flat = relevance[:, dims_flat].permute(1, 0, 2)         # (B, 3, nl)
-    transparent = bounds <= 1.0
+    rel_flat = torch.gather(relevance.expand(B, -1, -1), 2,
+                            dims_flat[:, None, :].expand(-1, 3, -1))
+    transparent = bounds <= 1.0                                 # rel (B,3,nl)
 
     # tile extents per (store edge, tensor): the product of the factors
     # of the tensor's dims over the levels inside the store
-    tile_mask = (tb.store_inner_lv[:, None, :, None]
-                 & relevance[None, :, None, :])                 # (NE,3,NL,d)
-    tiles = torch.where(tile_mask[None], factors[:, None, None], one
+    tile_mask = (tb.store_inner_lv[None, :, None, :, None]
+                 & relevance[:, None, :, None, :])              # (R,NE,3,NL,d)
+    tiles = torch.where(tile_mask, factors[:, None, None], one
                         ).reshape(B, NE, 3, NL * d).prod(dim=-1)  # (B,NE,3)
 
     def fills_for(s: int, t: int) -> torch.Tensor:
@@ -395,7 +463,7 @@ def eval_batch(tt: _TopoTables, tb: _Tables, structured: bool,
                                   one).prod(dim=1)
             if scheme == "frac":
                 fi = tt.noc_red_idx[s] if t == 2 else tt.noc_mc_idx[s]
-                mult = mult * torch.clamp(s_irrel / plat[fi], min=1.0)
+                mult = mult * torch.clamp(s_irrel / plat[:, fi], min=1.0)
             else:
                 mult = mult * s_irrel
         return tiles[:, s, t] * mult
@@ -415,17 +483,17 @@ def eval_batch(tt: _TopoTables, tb: _Tables, structured: bool,
     fmt = torch.where(
         is_sub & (gidx < G) & (gidx >= 0),
         fmt_genes.gather(2, torch.clamp(gidx, 0, G - 1)), FMT_U)
-    dens = densities[None, :, None]                             # (1, 3, 1)
+    dens = densities[:, :, None]                                # (R, 3, 1)
     sub_bounds = torch.where(is_sub, bnd3, one)
     elems_below = _rev_cumprod(sub_bounds, 2) / sub_bounds
     if structured:
-        row = dens_params.t()[:, None, :, None]                  # (R,1,3,1)
+        row = dens_params.permute(2, 0, 1)[:, :, :, None]       # (C,R,3,1)
         occ = _occ_structured(row, elems_below)
     else:
         # all-uniform: the literal uniform-random occupancy expression
-        occ = 1.0 - torch.pow(1.0 - dens, torch.clamp(elems_below, min=1.0))
+        occ = 1.0 - _pow(1.0 - dens, torch.clamp(elems_below, min=1.0))
     kept = sub_bounds * occ
-    full = full_elems[None, :, None]                            # (1, 3, 1)
+    full = full_elems[:, :, None]                               # (R, 3, 1)
 
     # The per-slot recurrence carries only the fiber count,
     #   n_fibers <- n_fibers * (L if fmt == U else kept)   on sub-dims,
@@ -450,7 +518,7 @@ def eval_batch(tt: _TopoTables, tb: _Tables, structured: bool,
 
     not_u = fmt != FMT_U
     compressed = (is_sub & not_u).any(dim=2)                    # (B, 3)
-    full2, dens2 = full_elems[None, :], densities[None, :]
+    full2, dens2 = full_elems, densities                        # (R, 3)
     data_b = torch.where(compressed, full2 * dens2 * wb, full2 * wb)
     ratios = (data_b + meta_bits / 8.0) / torch.clamp(full2 * wb, min=1.0)
 
@@ -467,23 +535,24 @@ def eval_batch(tt: _TopoTables, tb: _Tables, structured: bool,
     if structured:
         # element-granularity intersection hit rates of the input
         # leaders (DensityModel.hit_rate, carried per tensor)
-        d_p, d_q = dens_params[0, 1], dens_params[1, 1]
+        d_p, d_q = dens_params[:, 0, 1], dens_params[:, 1, 1]   # (R,)
     else:
-        d_p, d_q = densities[0], densities[1]
+        d_p, d_q = densities[:, 0], densities[:, 1]
     sg_invalid = (skips & ((lead_p & ~p_comp) | (lead_q & ~q_comp))
                   ).any(dim=1)
     sk_or_g = skips | gates
-    frac_e_p = torch.where(fol_p & sk_or_g, d_q, one)
-    frac_e_q = torch.where(fol_q & sk_or_g, d_p, one)
-    frac_t_p = torch.where(fol_p & skips, d_q, one)
-    frac_t_q = torch.where(fol_q & skips, d_p, one)
+    frac_e_p = torch.where(fol_p & sk_or_g, d_q[:, None], one)
+    frac_e_q = torch.where(fol_q & sk_or_g, d_p[:, None], one)
+    frac_t_p = torch.where(fol_p & skips, d_q[:, None], one)
+    frac_t_q = torch.where(fol_q & skips, d_p[:, None], one)
     cyc_frac = torch.where((skips & lead_p).any(dim=1), d_p, one) * \
         torch.where((skips & lead_q).any(dim=1), d_q, one)
     e_frac = torch.where((sk_or_g & lead_p).any(dim=1), d_p, one) * \
         torch.where((sk_or_g & lead_q).any(dim=1), d_q, one)
 
     # ---- traffic ----
-    total_z = (full_elems * z_onehot).sum()
+    fz = full_elems * z_onehot
+    total_z = (fz[:, 0] + fz[:, 1] + fz[:, 2])[:, None, None]  # (R, 1, 1)
     ones_b = bounds.new_ones(B)
     fe_rows, ft_rows = [], []
     for e in range(NE):
@@ -499,7 +568,7 @@ def eval_batch(tt: _TopoTables, tb: _Tables, structured: bool,
     fe = torch.stack(fe_rows, dim=1)                            # (B, NE, 3)
     ft = torch.stack(ft_rows, dim=1)
     f_rmw = torch.maximum(2.0 * fills - total_z, total_z)
-    fills_adj = torch.where(z_onehot[None, None, :] > 0.5, f_rmw, fills)
+    fills_adj = torch.where(z_onehot[:, None, :] > 0.5, f_rmw, fills)
 
     if tt.uniform_words:
         # default-width topology: the global width as a constant
@@ -510,43 +579,43 @@ def eval_batch(tt: _TopoTables, tb: _Tables, structured: bool,
         # the width, metadata bits do not, so the compression ratio is
         # recomputed per edge (edge s fills store s+1, whose width also
         # prices that store's occupancy)
-        wbs = plat[list(tt.word_idx)]                           # (NE,)
-        full_wb = full_elems[None, :] * wbs[:, None]            # (NE, 3)
+        wbs = plat[:, list(tt.word_idx)][:, :, None]            # (R, NE, 1)
+        full_wb = full_elems[:, None, :] * wbs                  # (R, NE, 3)
         data_be = torch.where(
             compressed[:, None, :],
-            full_elems[None, :] * densities[None, :] * wbs[:, None],
+            full_elems[:, None, :] * densities[:, None, :] * wbs,
             full_wb)                                            # (B, NE, 3)
         ratios_e = (data_be + meta_bits[:, None, :] / 8.0) / \
             torch.clamp(full_wb, min=1.0)
-        byt = fills_adj * wbs[:, None] * ratios_e
-        tile_bytes = (tiles * wbs[:, None] * ratios_e).sum(dim=2)
+        byt = fills_adj * wbs * ratios_e
+        tile_bytes = (tiles * wbs * ratios_e).sum(dim=2)
     tr_e = (byt * fe).sum(dim=2)                                # (B, NE)
     tr_t = (byt * ft).sum(dim=2)
 
     # ---- validity, energy, latency (param-vector driven) ----
     invalid = fmt_invalid | sg_invalid
     for fan, pi in zip(fanouts, tt.fanout_idx):
-        invalid = invalid | (fan > plat[pi])
+        invalid = invalid | (fan > plat[:, pi])
     for e, pi in tt.cap_checks:
-        invalid = invalid | (tile_bytes[:, e] > plat[pi])
+        invalid = invalid | (tile_bytes[:, e] > plat[:, pi])
 
     # left-associated sums/products: the float32 evaluation order of the
     # reference evaluator
     energy = None
     for e in range(NE):
-        comps_e = [plat[i] for i in tt.energy_idx[e]]
+        comps_e = [plat[:, i] for i in tt.energy_idx[e]]
         e_edge = comps_e[0]
         for c in comps_e[1:]:
             e_edge = e_edge + c
         term = tr_e[:, e] * e_edge
         energy = term if energy is None else energy + term
-    energy = energy + total_macs * e_frac * plat[tt.mac_idx]
+    energy = energy + total_macs * e_frac * plat[:, tt.mac_idx]
     fan_prod = fanouts[0] if fanouts else ones_b
     for fan in fanouts[1:]:
         fan_prod = fan_prod * fan
     cycles = (total_macs / fan_prod) * cyc_frac
     for e, pi in tt.bw_checks:
-        cycles = torch.maximum(cycles, tr_t[:, e] / plat[pi])
+        cycles = torch.maximum(cycles, tr_t[:, e] / plat[:, pi])
     valid = ~invalid
     big = torch.full((), float("inf"), dtype=f32, device=bounds.device)
     return (valid, torch.where(valid, energy, big),
@@ -591,7 +660,8 @@ class TorchCostModel:
     device.  Instances with the same (ndims, prime bucket, topology,
     density mode) run the same tensor program — same-topology platforms
     (e.g. the paper's edge/mobile/cloud) differ only in the parameter
-    vector.
+    vector — so their rows can share one dispatch (:func:`eval_stacked`,
+    :func:`run_segments`).
 
     ``n_pad`` widens the prime axis beyond the workload's natural bucket so
     a group of concurrent searches over different workloads can be forced
@@ -645,18 +715,17 @@ class TorchCostModel:
                 f"nine-tuple with {self.n_pad} primes")
         dtypes = (torch.float32, torch.int64, torch.bool) + \
             (torch.float32,) * 6
+        # one row of each constant (R == 1 in eval_batch): the broadcast
+        # call uses them as they are, the stacked paths index them
         self._consts = tuple(
-            torch.as_tensor(c, device=self.device).to(dt)
+            torch.as_tensor(c[None], device=self.device).to(dt)
             for c, dt in zip(self._np_consts, dtypes))
 
         self._tt = _topo_tables(self.arch.topology)
         self._tb = _device_tables(self.d, self.arch.topology, self.device)
-        s = spec.segments
-        self._sl_perm = (s["perm"].start, s["perm"].stop)
-        self._sl_til = (s["tiling"].start, s["tiling"].stop)
-        self._sl_fmt = [(s[f"fmt_{t.name}"].start, s[f"fmt_{t.name}"].stop)
-                        for t in wl.tensors]
-        self._sl_sg = (s["sg"].start, s["sg"].stop)
+        #: the signature's shared genome layout, in which rows reach the
+        #: evaluator
+        self.layout = PaddedLayout(spec, self.n_pad)
 
     @classmethod
     def from_numpy_consts(cls, spec: GenomeSpec,
@@ -677,49 +746,52 @@ class TorchCostModel:
         return (self.d, self.n_pad, self.arch.topology.fingerprint,
                 self.dens_key)
 
-    def _prepare(self, genomes: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                            torch.Tensor]:
-        """Slice a (B, L) int64 genome batch on the device into the
-        evaluator's (perm, tiling, fmt, sg) inputs, padding the prime axis
-        to its bucket.  For one signature these tensors have identical
-        trailing shapes across workloads."""
-        n = genomes.shape[0]
-        perm = genomes[:, self._sl_perm[0]:self._sl_perm[1]]
-        til = genomes[:, self._sl_til[0]:self._sl_til[1]]
-        if self.n_pad != self.n_primes:
-            til = torch.cat(
-                [til, til.new_zeros((n, self.n_pad - self.n_primes))], dim=1)
-        fmt = torch.stack([genomes[:, a:b] for a, b in self._sl_fmt], dim=1)
-        sg = genomes[:, self._sl_sg[0]:self._sl_sg[1]]
-        return perm, til, fmt, sg
-
-    def eval_device(self, genomes: torch.Tensor
+    def eval_device(self, rows: torch.Tensor,
+                    consts: Optional[Sequence[torch.Tensor]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Evaluate a (B, L) integer genome tensor that already lives on
-        this model's device; returns device tensors ``(valid, energy_pj,
-        cycles)`` without synchronising."""
+        """Evaluate ``(B, Lp)`` int64 genome rows in this signature's
+        padded layout (:attr:`layout`) that already live on this model's
+        device; returns device tensors ``(valid, energy_pj, cycles)``
+        without synchronising.  ``consts`` are per-row constants (see
+        :func:`eval_batch`); by default this model's, broadcast."""
+        NL, F3 = self._tt.n_levels, 3 * MAX_FMT_GENES
+        f0 = NL + self.n_pad
         with torch.no_grad():
-            return eval_batch(self._tt, self._tb, self.structured,
-                              *self._prepare(genomes.long()), *self._consts)
+            return eval_batch(
+                self._tt, self._tb, self.structured, rows[:, :NL],
+                rows[:, NL:f0],
+                rows[:, f0:f0 + F3].reshape(-1, 3, MAX_FMT_GENES),
+                rows[:, f0 + F3:],
+                *(self._consts if consts is None else consts))
 
     def __call__(self, genomes) -> Dict[str, np.ndarray]:
         """genomes: (B, L) ints -> dict of (B,) numpy arrays.  No batch
-        padding: eager PyTorch has no compiled shapes to reuse."""
-        g = torch.from_numpy(
-            np.ascontiguousarray(np.asarray(genomes, dtype=np.int32)))
+        padding: eager PyTorch has no compiled shapes to reuse.  The rows
+        go up as they are, in int32, and are padded to the signature's
+        layout on the device: at the largest batches the host's copies,
+        not the device, would otherwise set the call's time."""
+        (raw,) = _upload([np.asarray(genomes)], self.device, np.int32)
         _count_dispatch()
-        valid, energy, cycles = self.eval_device(g.to(self.device))
-        host = torch.stack([valid.to(torch.float32), energy, cycles]
-                           ).cpu().numpy()
+        valid, energy, cycles = self.eval_device(
+            self.layout.pad_rows(raw.long()))
+        (host,) = _Fetch([torch.stack([valid.to(torch.float32), energy,
+                                       cycles])]).wait()
         return _canonical(dict(valid=host[0] > 0.5, energy_pj=host[1],
                                cycles=host[2]))
+
+    def run_segment(self, seg: DeviceSegment) -> SegmentResult:
+        """Execute one device-resident ES segment against this model (the
+        single-task case of :func:`run_segments`).  ``_drive`` and other
+        single-evaluator drivers discover this method by name — evaluators
+        without it receive ``None`` and the generator replays the segment
+        on the host."""
+        return run_segments([self], [seg])[0]
 
 
 def _canonical(out: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """Derive ``edp`` and ``log10_edp`` in numpy from the device's float32
-    cycles/energy, so every dispatch path — this one and those later
-    slices add — gives bit-identical derived outputs for the same rows."""
+    cycles/energy, so every dispatch path gives bit-identical derived
+    outputs for the same rows."""
     cycles = out["cycles"]
     energy = out["energy_pj"]
     with np.errstate(over="ignore"):
@@ -728,3 +800,460 @@ def _canonical(out: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
                             np.log10(np.maximum(energy, 1e-30))
                             ).astype(cycles.dtype)
     return out
+
+
+# --------------------------------------------------- host <-> device
+
+
+def _upload(arrays: Sequence[np.ndarray], device: torch.device,
+            dtype=np.int64) -> List[torch.Tensor]:
+    """Copy host arrays to ``device`` in ONE transfer of ``dtype`` and
+    return a view of it per array, in the array's shape.  On the GPU the
+    copy goes from pinned memory without blocking: a pageable copy would
+    wait for every kernel already queued, which is the host sync a
+    pipelined fleet must not take.  The arrays are gathered by one host
+    copy, straight into that buffer."""
+    arrays = [np.asarray(a) for a in arrays]
+    host = torch.empty(sum(a.size for a in arrays),
+                       dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                       pin_memory=device.type == "cuda")
+    np.concatenate([a.reshape(-1) for a in arrays], out=host.numpy())
+    t = host.to(device, non_blocking=True)
+    out, off = [], 0
+    for a in arrays:
+        out.append(t[off:off + a.size].view(a.shape))
+        off += a.size
+    return out
+
+
+class _Fetch:
+    """Device tensors on their way to the host.  On the GPU each is copied
+    into pinned host memory by a copy queued now, behind the work that
+    computes it, and an event marks the end of the copies; :meth:`wait`
+    blocks on that event alone (charged to :func:`host_blocked_s`), so
+    work queued after the copies — the next round — keeps running."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor]):
+        self._event = None
+        if tensors[0].is_cuda:
+            self._host = []
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                self._host.append(h)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = list(tensors)
+
+    def wait(self) -> List[np.ndarray]:
+        def conv():
+            if self._event is not None:
+                self._event.synchronize()
+            return [h.numpy() for h in self._host]
+        return _time_block(conv)
+
+
+# ------------------------------------------------- stacked mega-batch
+
+
+def _pad_batch(n: int) -> int:
+    """Batch-axis padding of the stacked path: next power of two, floor
+    64 — ES populations and the baselines' odd native batch sizes (48,
+    50, 64) all land on the same few shapes (the reference's rule, kept
+    so the fleet's pad watermarks match it field for field and a later
+    CUDA-graph capture has few shapes to capture)."""
+    return max(64, 1 << max(0, (n - 1)).bit_length())
+
+
+# The stacked constants of a same-signature group: each model's constants
+# stacked into (T, ...) device tensors and given to every row through a
+# row-to-task index.  One slot per (signature, device, kind), keyed by
+# CONTENT (workload cache_key + arch per model, never id(), so a recycled
+# object can't alias a stale entry) plus the row counts: a steady fleet
+# builds them once, not every round.
+_STACK_CONSTS: Dict[Tuple, Tuple] = {}
+_STACK_PREP_HITS = 0
+_STACK_PREP_MISSES = 0
+
+
+def stack_prep_counts() -> Tuple[int, int]:
+    """(cache hits, cache misses) of the stacked-constants cache."""
+    with _LOCK:
+        return _STACK_PREP_HITS, _STACK_PREP_MISSES
+
+
+def reset_stack_prep_counts() -> None:
+    global _STACK_PREP_HITS, _STACK_PREP_MISSES
+    with _LOCK:
+        _STACK_PREP_HITS = _STACK_PREP_MISSES = 0
+
+
+def clear_stack_cache() -> None:
+    """Drop the cached stacked constants and zero their counters."""
+    with _LOCK:
+        _STACK_CONSTS.clear()
+    reset_stack_prep_counts()
+
+
+def _stacked_consts(models: Sequence[TorchCostModel], sizes: Sequence[int],
+                    padded: int, kind: str
+                    ) -> Tuple[Tuple[torch.Tensor, ...],
+                               Tuple[torch.Tensor, ...]]:
+    """``(per-task, per-row)`` constants of a same-signature group: model
+    ``t`` owns ``sizes[t]`` consecutive rows, the ``padded - sum(sizes)``
+    padding rows take model 0's constants."""
+    global _STACK_PREP_HITS, _STACK_PREP_MISSES
+    m0 = models[0]
+    slot = m0.signature + (str(m0.device), kind)
+    key = (tuple((m.spec.workload.cache_key(), m.arch) for m in models),
+           tuple(int(n) for n in sizes), int(padded))
+    with _LOCK:
+        hit = _STACK_CONSTS.get(slot)
+        if hit is not None and hit[0] == key:
+            _STACK_PREP_HITS += 1
+            return hit[1], hit[2]
+        _STACK_PREP_MISSES += 1
+    task = tuple(torch.cat([m._consts[j] for m in models])
+                 for j in range(len(m0._consts)))
+    idx = np.zeros(padded, dtype=np.int64)
+    idx[:sum(sizes)] = np.repeat(np.arange(len(models)), sizes)
+    (idx_t,) = _upload([idx], m0.device)
+    rows = tuple(c.index_select(0, idx_t) for c in task)
+    with _LOCK:
+        _STACK_CONSTS[slot] = (key, task, rows)
+    return task, rows
+
+
+def _check_group(models: Sequence[TorchCostModel], what: str) -> None:
+    sig = models[0].signature
+    if any(m.signature != sig for m in models):
+        raise ValueError(
+            f"{what} needs one shared signature, got "
+            f"{sorted({m.signature for m in models})}")
+    if any(m.device != models[0].device for m in models):
+        raise ValueError(f"{what} needs its models on one device")
+
+
+class StackedPending:
+    """Handle to an in-flight ``eval_stacked(..., defer=True)`` dispatch:
+    the device is computing when this is constructed, and ``finalize()``
+    waits for the results (charged to :func:`host_blocked_s`),
+    canonicalizes, and slices the mega-batch back per task.  ``finalize``
+    is idempotent."""
+
+    def __init__(self, fetch: _Fetch, sizes: Sequence[int]):
+        self._fetch = fetch
+        self._sizes = list(sizes)
+        self._sliced: Optional[List[Dict[str, np.ndarray]]] = None
+
+    def finalize(self) -> List[Dict[str, np.ndarray]]:
+        if self._sliced is None:
+            (host,) = self._fetch.wait()
+            flat = _canonical(dict(valid=host[0] > 0.5, energy_pj=host[1],
+                                   cycles=host[2]))
+            sliced: List[Dict[str, np.ndarray]] = []
+            off = 0
+            for n in self._sizes:
+                sliced.append({k: v[off:off + n] for k, v in flat.items()})
+                off += n
+            self._sliced = sliced
+            self._fetch = None
+        return self._sliced
+
+
+def eval_stacked(models: Sequence[TorchCostModel],
+                 batches: Sequence[np.ndarray],
+                 pad_floor: int = 0, defer: bool = False):
+    """Evaluate several (model, genome-batch) pairs sharing one signature
+    in a SINGLE dispatch.
+
+    The batches go to the device in one int32 copy, where they are padded
+    to the signature's genome layout and concatenated along the batch
+    axis, every row
+    is given its model's workload/platform constants by a row-to-task
+    index (:func:`stack_prep_counts` counts the cache of those), and the
+    row evaluator runs once on the mega-batch, padded to the next power
+    of two (floor 64) or ``pad_floor`` if larger — drivers pass the
+    watermark of earlier rounds (padding rows are zero genomes, sliced
+    off).  Rows run the same per-row arithmetic as the broadcast call, so
+    results are bit-identical to per-model calls.
+
+    ``defer=True`` returns a :class:`StackedPending` instead of the sliced
+    list: the work and the copy of its results are queued, and nothing
+    blocks until ``finalize()`` — the pipelined driver finalizes round N's
+    group i while groups i+1.. compute.  Results are bit-identical to
+    ``defer=False``."""
+    if len(models) != len(batches):
+        raise ValueError("models and batches must pair up")
+    _check_group(models, "eval_stacked")
+    sizes = [len(b) for b in batches]
+    total = sum(sizes)
+    padded = max(_pad_batch(total), int(pad_floor))
+    dev = models[0].device
+    # as in __call__: the rows go up unpadded in int32 and are laid out on
+    # the device, padding rows zero
+    raws = _upload(batches, dev, np.int32)
+    rows_t = torch.zeros((padded, models[0].layout.Lp), dtype=torch.int64,
+                         device=dev)
+    off = 0
+    for m, raw, n in zip(models, raws, sizes):
+        m.layout.pad_rows(raw, out=rows_t[off:off + n])
+        off += n
+    _, consts = _stacked_consts(models, sizes, padded, "stacked")
+    _count_dispatch()
+    valid, energy, cycles = models[0].eval_device(rows_t, consts)
+    pending = StackedPending(
+        _Fetch([torch.stack([valid.to(torch.float32), energy, cycles])]),
+        sizes)
+    return pending if defer else pending.finalize()
+
+
+# ------------------------------------------------ device-resident segments
+
+
+def _direct_translate(kids: torch.Tensor, model: TorchCostModel,
+                      primes: torch.Tensor, prime_dim: torch.Tensor,
+                      scramble: torch.Tensor, dim_sizes: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``DirectValueSpec.to_canonical`` on ``(T, C, Ld)`` direct-value rows
+    at once: ``(canon (T, C, Lp), ok (T, C))``, ``canon`` in the padded
+    layout.  Each task's primes (``(T, n_pad)``; padding primes 1.0) are
+    placed greedily on the first level whose remaining factor they
+    divide, in a loop over the padded prime axis; the factors are
+    integral float32 values far inside the exact range, so products and
+    ``remainder`` are exact and the row agrees with the numpy oracle.
+    Rows with ``ok`` False are untranslatable (their ``canon`` is not
+    meaningful)."""
+    T, C, _ = kids.shape
+    NL, d = model._tt.n_levels, model.d
+    perm = scramble.gather(1, kids[:, :, :NL].reshape(T, C * NL)
+                           ).reshape(T, C, NL)
+    factors = kids[:, :, NL:NL + d * NL].reshape(T, C, d, NL).to(
+        torch.float32)
+    ok = (factors.prod(dim=3) == dim_sizes[:, None, :]).all(dim=2)
+    remaining = factors
+    levels = torch.arange(NL, device=kids.device)
+    til = []
+    for kk in range(model.n_pad):
+        p = primes[:, kk, None, None, None]                    # (T,1,1,1)
+        is_real = primes[:, kk, None] > 1.5                    # (T, 1)
+        sel = prime_dim[:, kk, None, None, None].expand(T, C, 1, NL)
+        rem = remaining.gather(2, sel)                         # (T,C,1,NL)
+        can = (torch.remainder(rem, p) == 0) & (rem > 1.0)
+        lvl = can.to(torch.int32).argmax(dim=3)                # (T, C, 1)
+        hasl = can.any(dim=3)
+        ok = ok & (hasl[..., 0] | ~is_real)
+        upd = (levels == lvl[..., None]) & hasl[..., None] & \
+            is_real[:, :, None, None]
+        remaining = remaining.scatter(2, sel, torch.where(upd, rem / p, rem))
+        til.append(torch.where(is_real & hasl[..., 0], lvl[..., 0], 0))
+    canon = torch.cat([perm, torch.stack(til, dim=2),
+                       kids[:, :, NL + d * NL:]], dim=2)
+    return canon, ok
+
+
+def run_segments(models: Sequence[TorchCostModel],
+                 segs: Sequence[DeviceSegment],
+                 defer: bool = False) -> List[SegmentResult]:
+    """Execute one DeviceSegment per model as ONE dispatch: the segments
+    (which must share the models' signature and the segment shape key)
+    stack along a task axis, and a Python loop over the ``k`` generations
+    advances all ``T`` tasks on the device — stable-sort selection,
+    crossover and mutation from the pre-drawn plans (``es_ops`` torch
+    forms on ``(T, B, Lp)`` populations), clip and fixed genes, then the
+    ``T·C`` children through the row evaluator with per-row constants;
+    the selection fitness is the float32 product ``cycles * energy``, the
+    same multiply ``_canonical`` does on the host.  Nothing inside the
+    segment waits for the device: the plans go up in one copy (two with
+    float inputs) before the loop, the outputs land in tensors allocated
+    once per segment and come back in one queued copy after it.
+
+    ``kind == "direct"`` segments (``standard_es``) carry direct-value
+    populations and translate every generation's children to canonical
+    rows inside the segment (:func:`_direct_translate`); untranslatable
+    rows get fitness ``inf`` and canonical row 0.  ``restart > 0`` runs
+    the stagnation-restart variant: ``seg.state`` (best-so-far, stagnant
+    generations) rides along as device tensors, each generation's
+    pre-drawn fresh block is always evaluated (with the children, in the
+    same call) and adopted by a ``torch.where`` when the counter trips.
+
+    Pipelining: a segment carrying ``carry`` (the device ``(pop, edp)``
+    of its previous result) starts from it, so the population never
+    leaves the device between segments.  With ``defer=True`` the results
+    hold a ``harvest`` thunk that waits for the copy one round late
+    (``SegmentResult.resolve``); ``carry`` is valid either way.  Restart
+    results fill ``state`` at once (their generators harvest eagerly)."""
+    if len(models) != len(segs):
+        raise ValueError("models and segments must pair up")
+    _check_group(models, "run_segments")
+    shape_key = segment_shape_key(segs[0])
+    if any(segment_shape_key(s) != shape_key for s in segs):
+        raise ValueError("run_segments needs one shared segment shape")
+    B, k, n_parents, n_elite, genes_per, kind, restart = shape_key
+    direct = kind == "direct"
+    if direct and restart:
+        raise ValueError("direct segments do not support in-segment restart")
+    dev = models[0].device
+    m0 = models[0]
+    T = len(segs)
+    C = int(np.asarray(segs[0].draws["ab"]).shape[1])
+    lays = [m.layout for m in models]
+
+    # ---- host -> device: the integers in one copy, the floats in one
+    def plan(key, pad=None):
+        return np.stack([np.asarray(s.draws[key]) if pad is None or direct
+                         else pad(lay)(np.asarray(s.draws[key]))
+                         for s, lay in zip(segs, lays)])
+    host_pop = [t for t, s in enumerate(segs) if s.carry is None]
+    ints = [plan("ab"), plan("cuts", lambda lay: lay.pad_cut),
+            plan("active"), plan("gene", lambda lay: lay.pad_index),
+            plan("vals")]
+    for t in host_pop:
+        p = np.asarray(segs[t].pop, dtype=np.int64)
+        ints.append(p if direct else lays[t].pad_rows(p))
+    flts = [np.asarray(segs[t].edp, dtype=np.float32) for t in host_pop]
+    if direct:
+        ints.append(np.stack([s.aux["scramble"] for s in segs]))
+        flts.append(np.stack([s.aux["dim_sizes"] for s in segs]))
+    else:
+        fixed = np.zeros((2, T, lays[0].Lp), dtype=np.int64)
+        for t, (s, lay) in enumerate(zip(segs, lays)):
+            if s.fixed_genes:
+                idx = lay.pad_index(np.asarray(list(s.fixed_genes),
+                                               dtype=np.int64))
+                fixed[0, t, idx] = 1
+                fixed[1, t, idx] = list(s.fixed_genes.values())
+        ints.append(np.stack([lay.pad_vector(m.spec.gene_ub, 1)
+                              for m, lay in zip(models, lays)]))
+        ints.append(fixed)
+    if restart:
+        ints.append(np.stack([lay.pad_rows(np.asarray(s.draws["fresh"],
+                                                      dtype=np.int64))
+                              for s, lay in zip(segs, lays)]))
+        ints.append(np.asarray([s.state[1] for s in segs]))
+        flts.append(np.asarray([s.state[0] for s in segs]))
+    iu = iter(_upload(ints, dev))
+    fu = iter(_upload(flts, dev, np.float32) if flts else [])
+    ab, cuts, active, gene, vals = (next(iu) for _ in range(5))
+    active = active.bool()
+    up_pop = {t: (next(iu), next(fu)) for t in host_pop}
+    pop = torch.stack([up_pop[t][0] if t in up_pop else s.carry[0]
+                       for t, s in enumerate(segs)])
+    edp = torch.stack([up_pop[t][1] if t in up_pop else s.carry[1]
+                       for t, s in enumerate(segs)])
+    if direct:
+        scramble, dim_sizes = next(iu), next(fu)
+    else:
+        ub_m1, fixed = next(iu) - 1, next(iu)
+        fix_mask, fix_vals = fixed[0].bool()[:, None, :], fixed[1][:, None, :]
+    if restart:
+        fresh, since, best = next(iu), next(iu), next(fu)
+
+    reps = 2 if restart else 1
+    task_c, row_c = _stacked_consts(list(models) * reps, [C] * (T * reps),
+                                    T * C * reps, "segment")
+    n = T * C
+    Lp = lays[0].Lp
+    _count_dispatch()
+    ys_kids = torch.empty((T, k, C, Lp), dtype=torch.int64, device=dev)
+    ys = torch.empty((3, T, k, C), dtype=torch.float32, device=dev)
+    if restart:
+        ys_fresh = torch.empty((3, T, k, C), dtype=torch.float32, device=dev)
+        ys_restarted = torch.empty((T, k), dtype=torch.bool, device=dev)
+    big = torch.full((), float("inf"), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        for g in range(k):
+            parents, elites, elite_edp = es_ops.select(pop, edp, n_parents,
+                                                       n_elite)
+            kids = es_ops.apply_crossover(parents, ab[:, g], cuts[:, g])
+            kids = es_ops.apply_mutation(kids, active[:, g], gene[:, g],
+                                         vals[:, g])
+            if direct:
+                # direct mutation draws are valid values by construction:
+                # no clip, no fixed genes (as on the host)
+                canon, ok = _direct_translate(kids, m0, task_c[0], task_c[1],
+                                              scramble, dim_sizes)
+                valid, energy, cycles = m0.eval_device(
+                    canon.reshape(n, Lp), row_c)
+                okf = ok.reshape(n)
+                valid = valid & okf
+                energy = torch.where(okf, energy, big)
+                cycles = torch.where(okf, cycles, big)
+                ys_kids[:, g] = torch.where(ok[:, :, None], canon, 0)
+            else:
+                kids = torch.minimum(kids.clamp(min=0), ub_m1[:, None, :])
+                kids = torch.where(fix_mask, fix_vals, kids)
+                ys_kids[:, g] = kids
+                rows = kids.reshape(n, Lp)
+                if restart:
+                    rows = torch.cat([rows, fresh[:, g].reshape(n, Lp)])
+                valid, energy, cycles = m0.eval_device(rows, row_c)
+            for i, v in enumerate((valid, energy, cycles)):
+                ys[i, :, g] = v[:n].view(T, C)
+            kedp = (cycles[:n] * energy[:n]).view(T, C)
+            new_pop = torch.cat([elites, kids], dim=1)
+            new_edp = torch.cat([elite_edp, kedp], dim=1)
+            if restart:
+                for i, v in enumerate((valid, energy, cycles)):
+                    ys_fresh[i, :, g] = v[n:].view(T, C)
+                fedp = (cycles[n:] * energy[n:]).view(T, C)
+                kbest = torch.minimum(best, kedp.min(dim=1).values)
+                since = torch.where(kbest < best, 0, since + 1)
+                do_r = since >= restart
+                new_pop = torch.where(
+                    do_r[:, None, None],
+                    torch.cat([elites, fresh[:, g]], dim=1), new_pop)
+                new_edp = torch.where(do_r[:, None],
+                                      torch.cat([elite_edp, fedp], dim=1),
+                                      new_edp)
+                best = torch.where(
+                    do_r, torch.minimum(kbest, fedp.min(dim=1).values),
+                    kbest)
+                since = torch.where(do_r, 0, since)
+                ys_restarted[:, g] = do_r
+            pop, edp = new_pop, new_edp
+    outs = [pop, edp, ys_kids, ys]
+    if restart:
+        outs += [ys_fresh, ys_restarted, best, since]
+    fetch = _Fetch(outs)
+
+    host: Dict[str, List[np.ndarray]] = {}
+
+    def materialize() -> List[np.ndarray]:
+        if "h" not in host:
+            host["h"] = fetch.wait()
+        return host["h"]
+
+    def make_harvest(t: int, lay: PaddedLayout):
+        def harvest():
+            h = materialize()
+            pf, ef, kids_h, ys_h = h[:4]
+            gens = []
+            for g in range(k):
+                out = _canonical(dict(valid=ys_h[0, t, g] > 0.5,
+                                      energy_pj=ys_h[1, t, g],
+                                      cycles=ys_h[2, t, g]))
+                if restart:
+                    fr = h[4]
+                    out["fresh"] = _canonical(dict(
+                        valid=fr[0, t, g] > 0.5, energy_pj=fr[1, t, g],
+                        cycles=fr[2, t, g]))
+                    out["restarted"] = bool(h[5][t, g])
+                gens.append((lay.unpad_rows(kids_h[t, g]), out))
+            final = pf[t] if direct else lay.unpad_rows(pf[t])
+            return gens, final.astype(np.int64), ef[t]
+        return harvest
+
+    results: List[SegmentResult] = []
+    for t, lay in enumerate(lays):
+        r = SegmentResult(gens=None, final_pop=None, final_edp=None,
+                          carry=(pop[t], edp[t]),
+                          harvest=make_harvest(t, lay))
+        if not defer:
+            r.resolve()
+        if restart:
+            h = materialize()
+            r.state = (float(h[6][t]), int(h[7][t]))
+        results.append(r)
+    return results

@@ -204,4 +204,5 @@ def test_topology_mismatch_and_missing_device_raise():
         TorchCostModel(PortSpec(wl), "cloud")
     with pytest.raises(RuntimeError):
         TorchCostModel(PortSpec(wl), "cloud", device="cuda")
-    assert not hasattr(TorchCostModel, "run_segment")
+    # device segments run on the evaluator itself (``_drive`` finds it)
+    assert callable(getattr(TorchCostModel, "run_segment", None))

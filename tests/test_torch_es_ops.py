@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_util import Recorder
 from repro.core import es_ops as ref_ops
 from repro.core.encoding import GenomeSpec as RefSpec
 from repro.core.workload import spmm as ref_spmm
@@ -162,16 +163,21 @@ def test_torch_keyed_plans_are_deterministic_and_in_range(specs):
 
 @pytest.mark.parametrize("rng_backend", ["numpy", "torch"])
 def test_device_rounds_replay_on_the_host(specs, rng_backend):
-    """``TorchCostModel`` has no ``run_segment``: a ``device_rounds > 1``
+    """Behind an evaluator without ``run_segment`` a ``device_rounds > 1``
     search sends ``None`` for every segment and the generator replays it
-    on the host, spending the budget exactly."""
+    on the host, spending the budget exactly and landing where
+    ``TorchCostModel.run_segment`` (the device segments) lands, on either
+    plan stream."""
     _, ps = specs
     ev = TorchCostModel(ps, "cloud", device="cpu")
     cfg = port_evolution.ESConfig(budget=900, pop_size=48, seed=1,
                                   device_rounds=4, rng_backend=rng_backend)
-    res = port_evolution.evolve(ps, ev, cfg)
-    again = port_evolution.evolve(ps, ev, cfg)
+    res = port_evolution.evolve(ps, Recorder(ev), cfg)
+    again = port_evolution.evolve(ps, Recorder(ev), cfg)
+    dev = port_evolution.evolve(ps, ev, cfg)
     assert res.evals == 900 and len(res.history) == 900
     assert np.isfinite(res.best_edp)
-    assert res.best_edp == again.best_edp
-    np.testing.assert_array_equal(res.best_genome, again.best_genome)
+    for other in (again, dev):
+        assert res.best_edp == other.best_edp
+        np.testing.assert_array_equal(res.history, other.history)
+        np.testing.assert_array_equal(res.best_genome, other.best_genome)
