@@ -18,9 +18,15 @@ where there is no CUDA device or the port's package is missing.  It
    dispatch, unpipelined) that must agree bit for bit, then all 28
    Table III workloads at a budget of 20,000 as one fleet on one
    signature, timed against the same searches run one after another;
-4. holds the GPU evaluator against the CPU one on 262,144 genomes per
+4. drives the sweep server (``launch.sweep_serve.SweepServer``) on
+   loopback: the same 28 queries from 28 client threads, four of them
+   admitted into the running fleet, in a clean epoch with checkpoints, an
+   epoch whose worker crashes once, a fresh server resuming the orphaned
+   checkpoint, and an epoch of k = 4 device segments; every answer equals
+   a plain ``MultiSearch`` of the same tasks bit for bit;
+5. holds the GPU evaluator against the CPU one on 262,144 genomes per
    workload and measures its rows per second;
-5. holds each kernel against its plain PyTorch version on the card — the
+6. holds each kernel against its plain PyTorch version on the card — the
    reference's test shapes, the edges of each route's tiles (half a query
    tile, empty, fully dense and all-zero block-rows, every column tile) and
    the workload shapes — and times kernel, plain version and one library
@@ -389,6 +395,303 @@ def fleet_phase(device):
             device_ops_per_stacked_call=stacked_launches,
             ms_per_stacked_call=wall_ms(one_stacked),
             searches=rows))
+
+
+# ------------------------------------------------------------------- serve
+
+SERVE_BUDGET = FLEET_BUDGET
+#: the first query of an epoch: its fleet's signature (32 primes,
+#: structured density) is the one every Table III workload aligns to, so
+#: each query admitted after it joins the same mega-batch
+SERVE_ANCHOR = "mm8"
+#: submitted only after the first ``update`` reaches a client: admitted
+#: into the running fleet
+SERVE_LATE = ("conv10", "conv11", "conv12", "conv13")
+
+
+def _serve_tasks():
+    from repro_torch.configs.paper_workloads import all_workloads
+    from repro_torch.core.search import SearchTask
+    return [SearchTask(wl, "cloud", budget=SERVE_BUDGET, seed=0)
+            for wl in all_workloads()]
+
+
+def _serve_epoch(srv):
+    """The 28 Table III queries against a running server, one client
+    thread each: the anchor first, the other 23 of the first 24 at once
+    when it is accepted, the last 4 when the first ``update`` reaches a
+    client.  Returns ({name: events}, {name: s to first update}, wall s)."""
+    import threading
+    from repro_torch.launch.sweep_serve import submit
+    tasks = {t.resolved_name(): t for t in _serve_tasks()}
+    anchor = f"{SERVE_ANCHOR}@cloud"
+    late = [f"{n}@cloud" for n in SERVE_LATE]
+    events, first_update, errors = {}, {}, []
+    accepted = {name: threading.Event() for name in tasks}
+    any_update = threading.Event()
+
+    def client(name):
+        try:
+            t0 = time.perf_counter()
+            evs = []
+            for ev in submit(srv.host, srv.port, tasks[name]):
+                evs.append(ev)
+                accepted[name].set()
+                if ev.get("event") == "update" and name not in first_update:
+                    first_update[name] = time.perf_counter() - t0
+                    any_update.set()
+            events[name] = evs
+        except Exception as e:      # noqa: BLE001 — re-raised below
+            errors.append(f"{name}: {e!r}")
+        finally:
+            accepted[name].set()
+
+    def launch(names):
+        ths = [threading.Thread(target=client, args=(n,), daemon=True)
+               for n in names]
+        for th in ths:
+            th.start()
+        return ths
+
+    t0 = time.perf_counter()
+    threads = launch([anchor])
+    check(accepted[anchor].wait(600), "the anchor query was not accepted")
+    threads += launch([n for n in tasks if n != anchor and n not in late])
+    check(any_update.wait(600), "no client received an update")
+    threads += launch(late)
+    for th in threads:
+        th.join(1200)
+    wall = time.perf_counter() - t0
+    check(not errors, f"serve clients failed: {errors}")
+    return events, first_update, wall
+
+
+def _check_serve_events(events, want, what):
+    """Every client got ``ok``, updates and one ``done`` that equals the
+    plain fleet's result for its task bit for bit."""
+    import numpy as np
+    check(sorted(events) == sorted(want),
+          f"serve {what}: answered {sorted(events)}")
+    for name, evs in events.items():
+        check(evs and evs[0].get("ok") is True and evs[0].get("id") == name,
+              f"serve {what}: {name} was not accepted: {evs[:1]}")
+        check(any(e.get("event") == "update" for e in evs),
+              f"serve {what}: {name} got no update")
+        done = [e for e in evs if e.get("event") == "done"]
+        check(len(done) == 1 and evs[-1] is done[0],
+              f"serve {what}: {name} got {len(done)} done events "
+              f"({[e.get('event') for e in evs[-3:]]})")
+        d, r = done[0], want[name]
+        check(d["evals"] == SERVE_BUDGET,
+              f"serve {what}: {name} {d['evals']} evals != {SERVE_BUDGET}")
+        check(d["best_edp"] == r.best_edp and d["evals"] == r.evals
+              and d["valid_evals"] == r.valid_evals
+              and d["best_genome"] == np.asarray(r.best_genome).tolist(),
+              f"serve {what}: {name} differs from the plain MultiSearch "
+              f"(best {d['best_edp']} vs {r.best_edp}, evals {d['evals']} "
+              f"vs {r.evals})")
+
+
+def _stats(srv):
+    from repro_torch.launch.sweep_serve import request
+    return next(iter(request(srv.host, srv.port, {"op": "stats"})))["stats"]
+
+
+def _epoch_row(stats, events, first_update, wall):
+    import numpy as np
+    lat = sorted(first_update.values())
+    fleet = stats["fleet"]
+    n_ck = stats["checkpoints"]
+    return dict(
+        wall_s=wall, queries=len(events), queries_per_s=len(events) / wall,
+        first_update_s_median=float(np.median(lat)),
+        first_update_s_max=lat[-1], epochs=stats["epochs"],
+        rounds=fleet["rounds"], dispatches=fleet["dispatches"],
+        dispatches_per_round=stats["dispatches_per_round"],
+        host_syncs_per_round=fleet["host_syncs_per_round"],
+        device_rounds=fleet["device_rounds"],
+        host_blocked_s=fleet["host_blocked_s"],
+        signature_groups=stats["signature_groups"],
+        restarts=stats["restarts"], checkpoints=n_ck,
+        bytes_per_checkpoint=stats["checkpoint_bytes"] / n_ck if n_ck
+        else 0,
+        ms_per_pack_fleet=1e3 * stats["checkpoint_pack_s"] / n_ck if n_ck
+        else 0.0,
+        ms_per_save_flat=1e3 * stats["checkpoint_s"] / n_ck if n_ck
+        else 0.0)
+
+
+def serve_phase(device):
+    """The sweep server on the card (``repro_torch.launch.sweep_serve``),
+    on loopback, the 28 Table III queries at 20,000 each from 28 client
+    threads, four epochs: (a) clean with checkpoints (k = 1), (b) the
+    worker crashed once after the second checkpoint, (c) a fresh server
+    resuming the fleet orphaned by (b), (d) no checkpoints, k = 4.  Every
+    ``done`` is held bit for bit against a plain ``MultiSearch`` of the
+    same 28 tasks, every best design against the float64 oracle."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.core import search, torch_cost
+    from repro_torch.core.search import FleetConfig, MultiSearch
+    from repro_torch.launch.sweep_serve import SweepServer, library_key
+
+    torch.cuda.reset_peak_memory_stats(device)
+    cfg1 = FleetConfig(stack_batches=True, device_rounds=1)
+    cfg4 = FleetConfig(stack_batches=True, device_rounds=4)
+    tasks = _serve_tasks()
+    names = [t.resolved_name() for t in tasks]
+    out = dict(phase="serve", device=str(device), tasks=len(tasks),
+               budget=SERVE_BUDGET, anchor=SERVE_ANCHOR,
+               late=list(SERVE_LATE))
+
+    t0 = time.perf_counter()
+    plain1 = MultiSearch(_serve_tasks(), cfg1, device=device).run()
+    out["plain_k1_wall_s"] = time.perf_counter() - t0
+    for t, name in zip(tasks, names):
+        res = plain1[name]
+        check(res.best_genome is not None and np.isfinite(res.best_edp),
+              f"serve: {name} found no valid design")
+        rep = search.report_best(t.workload, "cloud", res)
+        check(rep is not None and rep.valid,
+              f"serve: the numpy oracle calls {name}'s best invalid")
+        lg, lg_o = float(np.log10(res.best_edp)), float(np.log10(rep.edp))
+        check(abs(lg - lg_o) <= LG_TOL * max(abs(lg_o), 1.0),
+              f"serve: {name} log10 EDP {lg} vs oracle {lg_o}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        # ---- (a) the clean epoch
+        ck_a = os.path.join(tmp, "a")
+        srv = SweepServer(port=0, config=cfg1, ckpt_dir=ck_a, ckpt_every=8,
+                          device=device)
+        srv.start_background()
+        try:
+            events, first, wall = _serve_epoch(srv)
+            st = _stats(srv)
+        finally:
+            srv.stop()
+        _check_serve_events(events, plain1, "clean epoch")
+        check(st["epochs"] == 1 and st["completed"] == len(tasks),
+              f"serve clean epoch: {st['epochs']} epochs, "
+              f"{st['completed']} completed")
+        check(st["dispatches_per_round"] == 1.0,
+              f"serve clean epoch: {st['dispatches_per_round']} dispatches "
+              f"per round, expected 1.0 ({st['signature_groups']})")
+        check(st["checkpoints"] >= 2, "serve clean epoch: fewer than two "
+              "checkpoints")
+        check(not [d for d in os.listdir(ck_a) if d.startswith("step_")],
+              "serve clean epoch: spent checkpoints left behind")
+        out["clean"] = _epoch_row(st, events, first, wall)
+
+        # ---- (b) the crash epoch, (c) the orphan it leaves
+        ck_b, ck_c = os.path.join(tmp, "b"), os.path.join(tmp, "c")
+        srv = SweepServer(port=0, config=cfg1, ckpt_dir=ck_b, ckpt_every=8,
+                          device=device)
+        crash = dict(raised=None, recovered=None, step=None, cache=[])
+        orig_step = MultiSearch.step
+
+        def crashy(ms):
+            # the crash: at the first step after the second checkpoint
+            # that holds every task mid-generation (past its calibration
+            # and HSHI prologue), so each one resumes from its population
+            if crash["raised"] is None and srv._stats["checkpoints"] >= 2:
+                step = ckpt_lib.latest_step(ck_b)
+                _, meta = ckpt_lib.load_flat(ck_b, step)
+                if len(meta["tasks"]) == len(tasks) and \
+                        all(e["_resumable"] for e in meta["tasks"]):
+                    shutil.copytree(os.path.join(ck_b, f"step_{step:08d}"),
+                                    os.path.join(ck_c, f"step_{step:08d}"))
+                    crash["step"] = step
+                    crash["raised"] = time.perf_counter()
+                    raise RuntimeError("injected worker crash")
+            if crash["raised"] is None or len(crash["cache"]) >= 3:
+                return orig_step(ms)
+            # the first rounds after the restore: the stacked-constants
+            # cache's hits and misses in each
+            h0, m0 = torch_cost.stack_prep_counts()
+            alive = orig_step(ms)
+            if crash["recovered"] is None:
+                crash["recovered"] = time.perf_counter()
+            h1, m1 = torch_cost.stack_prep_counts()
+            crash["cache"].append(dict(hits=h1 - h0, misses=m1 - m0))
+            return alive
+
+        MultiSearch.step = crashy
+        try:
+            srv.start_background()
+            events, first, wall = _serve_epoch(srv)
+            st = _stats(srv)
+        finally:
+            MultiSearch.step = orig_step
+            srv.stop()
+        check(crash["raised"] is not None and crash["recovered"] is not None,
+              "serve crash epoch: the crash was not injected or not "
+              "recovered from")
+        check(st["restarts"] == 1,
+              f"serve crash epoch: {st['restarts']} restarts, expected 1")
+        _check_serve_events(events, plain1, "crash epoch")
+        row = _epoch_row(st, events, first, wall)
+        row["rounds_after_restore"] = row.pop("rounds")
+        out["crash"] = dict(
+            row, crashed_after_round=crash["step"],
+            recovery_s=crash["recovered"] - crash["raised"],
+            stacked_consts_cache_after_restore=crash["cache"])
+
+        # (c) a fresh server on the orphaned checkpoint, no client
+        t0 = time.perf_counter()
+        srv = SweepServer(port=0, config=cfg1, ckpt_dir=ck_c, ckpt_every=8,
+                          device=device)
+        srv.start_background()
+        try:
+            deadline = time.monotonic() + 600
+            while _stats(srv)["completed"] < len(tasks) and \
+                    time.monotonic() < deadline:
+                time.sleep(0.1)
+            st = _stats(srv)
+        finally:
+            srv.stop()
+        orphan_wall = time.perf_counter() - t0
+        check(st["completed"] == len(tasks) and st["epochs"] == 1
+              and st["restarts"] == 0,
+              f"serve orphan: {st['completed']} completed, {st['epochs']} "
+              f"epochs, {st['restarts']} restarts")
+        for t, name in zip(tasks, names):
+            entry = srv.library._best.get(library_key(t))
+            check(entry is not None and entry[0] == plain1[name].best_edp,
+                  f"serve orphan: library best for {name} "
+                  f"{entry and entry[0]} != {plain1[name].best_edp}")
+        out["orphan"] = dict(wall_s=orphan_wall, resumed_from_round=crash[
+            "step"], rounds=st["fleet"]["rounds"],
+            dispatches_per_round=st["dispatches_per_round"],
+            library_size=st["library"]["size"])
+
+        # ---- (d) no checkpoints, k = 4 device segments
+        t0 = time.perf_counter()
+        plain4 = MultiSearch(_serve_tasks(), cfg4, device=device).run()
+        out["plain_k4_wall_s"] = time.perf_counter() - t0
+        srv = SweepServer(port=0, config=cfg4, device=device)
+        srv.start_background()
+        try:
+            events, first, wall = _serve_epoch(srv)
+            st = _stats(srv)
+        finally:
+            srv.stop()
+        check(st["fleet"]["device_rounds"] == 4,
+              f"serve k=4: fleet ran {st['fleet']['device_rounds']} rounds "
+              f"a segment")
+        _check_serve_events(events, plain4, "k=4 epoch")
+        out["k4"] = _epoch_row(st, events, first, wall)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
+        device)
+    out["card"] = card_line()
+    return out
 
 
 # --------------------------------------------------------------- main path
@@ -961,7 +1264,7 @@ def main(argv=None) -> int:
     report["search"]["seconds"] = time.perf_counter() - t0
     emit(report["search"])
 
-    for name, phase in (("fleet", fleet_phase),
+    for name, phase in (("fleet", fleet_phase), ("serve", serve_phase),
                         ("evaluator", evaluator_phase)):
         t0 = time.perf_counter()
         report[name] = phase(device)

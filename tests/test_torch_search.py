@@ -165,8 +165,11 @@ def _imported_roots(path):
 
 def test_the_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py"]
+    files += [REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py",
+              REPO / "examples" / "sweep_client_torch.py"]
     assert len(files) > 25
+    for sub in ("checkpoint", "runtime", "launch"):
+        assert REPO / "src" / "repro_torch" / sub / "__init__.py" in files
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "flax",
                                        "optax"}
