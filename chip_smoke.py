@@ -24,12 +24,20 @@ where there is no CUDA device or the port's package is missing.  It
    epoch whose worker crashes once, a fresh server resuming the orphaned
    checkpoint, and an epoch of k = 4 device segments; every answer equals
    a plain ``MultiSearch`` of the same tasks bit for bit;
-5. holds the GPU evaluator against the CPU one on 262,144 genomes per
+5. drives the LM serving path (``repro_torch.models``, ``launch.steps``,
+   ``launch.serve``) on ``mistral-nemo-12b`` at full width in bf16 with
+   random weights from a seed: one prefill forward of 32,768 tokens whose
+   attention must run on the flash kernel in all 40 layers, the
+   ``serve decode`` loop (batch 4, prompt 64, 32 generated), the flash
+   route against the chunked route on the first 2 layers and 256
+   ``decode_step`` calls against one forward;
+6. holds the GPU evaluator against the CPU one on 262,144 genomes per
    workload and measures its rows per second;
-6. holds each kernel against its plain PyTorch version on the card — the
+7. holds each kernel against its plain PyTorch version on the card — the
    reference's test shapes, the edges of each route's tiles (half a query
    tile, empty, fully dense and all-zero block-rows, every column tile) and
-   the workload shapes — and times kernel, plain version and one library
+   the workload shapes; at the LM prefill's attention shape against the
+   model's chunked route — and times kernel, plain version and one library
    call beside the least time the card could take (``bound_ms``).  Each
    row names the route that ran (``kernel_route``: ``wgmma``, ``wmma`` or
    ``fma``, chosen by the wrappers' ``flash_plan`` / ``bsr_plan``);
@@ -694,6 +702,273 @@ def serve_phase(device):
     return out
 
 
+# ---------------------------------------------------------------------- lm
+
+LM_ARCH = "mistral-nemo-12b"
+LM_PREFILL_S = 32_768       # prefill_32k's sequence length, one sequence
+LM_DECODE = (4, 64, 32)     # batch, prompt, generated: the CLI's defaults
+LM_ROUTES_CHECK = (2, 2, 4096)      # layers, batch, sequence of check (a)
+LM_DECODE_CHECK_S = 256             # prompt of check (b)
+# Model-level bf16 logits are held per position: the rms of the error over
+# the vocabulary within LM_REL_RMS of the rms of the logits (the 0.05·rms
+# term of the kernel limit, applied to the error's rms).  The kernel limit
+# itself, taken element by element, is bf16's own spread for a model: the
+# JAX package's bf16 logits miss its fp32 logits by up to 1.3 times it at
+# two layers on the CPU, and on an H100 checks (a) and (b) below miss it
+# by 1.16 and 2.29 times while their per-position error rms is 1.1 % and
+# 2.5 %.
+LM_REL_RMS = 0.05
+
+
+def _first_layers(model, n):
+    """A view of ``model`` cut to its first ``n`` blocks (same weights)."""
+    import copy
+
+    import torch
+    sub = copy.copy(model)
+    sub._modules = dict(model._modules)
+    sub.blocks = torch.nn.ModuleList(list(model.blocks)[:n])
+    return sub
+
+
+def _logits_check(a, b, name):
+    """Per position, ``rms(a - b) <= LM_REL_RMS * rms(b)`` over the
+    vocabulary; returns the worst ratio and, for the record, the largest
+    element error as a share of the kernel limit."""
+    import torch
+    worst, share = 0.0, 0.0
+    for i in range(a.shape[0]):            # one sequence at a time
+        x, y = a[i].float(), b[i].float()
+        err = x - y
+        ratio = err.pow(2).mean(-1).sqrt() / y.pow(2).mean(-1).sqrt()
+        worst = max(worst, float(ratio.max()))
+        atol = ATOL_RMS * float(y.pow(2).mean().sqrt())
+        share = max(share, float((err.abs_() / (atol + RTOL_BF16 * y.abs())
+                                  ).max()))
+        del x, y, err
+    check(math.isfinite(worst) and worst <= LM_REL_RMS,
+          f"{name}: per-position error rms is {worst:.3g} of the logits' "
+          f"rms (limit {LM_REL_RMS})")
+    torch.cuda.synchronize()
+    return dict(worst_rel_rms=worst, rel_rms_limit=LM_REL_RMS,
+                elementwise_share_of_kernel_limit=share)
+
+
+def device_ms_by_kernel(fn):
+    """Device time of one call of ``fn`` per kernel name, from
+    ``torch.profiler`` (ms), sorted by time, and the count of device
+    operations it enqueued."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times, n = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            times[e.name] = times.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+            n += 1
+    check(n > 0, "torch.profiler saw no device operation")
+    return dict(sorted(times.items(), key=lambda kv: -kv[1])), n
+
+
+def _kernel_family(name):
+    low = name.lower()
+    if "flash_fwd" in low:
+        return "flash_attention (hand kernel)"
+    if any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
+        return "GEMM (cuBLAS)"
+    return "other (elementwise, reductions, copies)"
+
+
+def lm_phase(device):
+    """The dense decoder on the card at full width (``mistral-nemo-12b``,
+    bf16, random weights from a seed): one prefill forward of S = 32,768
+    (every layer's attention on the flash kernel), the ``serve decode``
+    loop at B = 4, prompt 64, gen 32, and two consistency checks — the
+    flash route against the chunked route on the model's first 2 layers,
+    and 256 ``decode_step`` calls against one forward over the same
+    tokens on all 40 layers."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models.attention import attention
+    from repro_torch.models.model import Model
+
+    def reset():
+        flash_attention.launches = 0
+        attention.calls.update(flash=0, chunked=0)
+
+    def counts():
+        return dict(flash_kernel=flash_attention.launches,
+                    route_flash=attention.calls["flash"],
+                    route_chunked=attention.calls["chunked"])
+
+    out = dict(arch=LM_ARCH)
+    cfg = get_config(LM_ARCH)
+    n_layers = cfg.n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device,
+                  generator=torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    out.update(layers=n_layers, param_count=sum(
+        p.numel() for p in model.parameters()), param_bytes=param_bytes,
+        build_max_memory_allocated_bytes=torch.cuda.max_memory_allocated(
+            device))
+    prefill = build_prefill_step(model)
+    rng = np.random.default_rng(0)
+
+    # ---- prefill: the main path of this phase, counts at 0 just before
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, LM_PREFILL_S))).to(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    logits = prefill({"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    forward_peak = torch.cuda.max_memory_allocated(device)
+    check(launches == dict(flash_kernel=n_layers, route_flash=n_layers,
+                           route_chunked=0),
+          f"lm prefill: {launches}, want the flash kernel in each of the "
+          f"{n_layers} layers and no chunked route")
+    check(tuple(logits.shape) == (1, LM_PREFILL_S, cfg.vocab_size)
+          and logits.dtype == torch.bfloat16
+          and bool(torch.isfinite(logits).all()),
+          "lm prefill: logits of the wrong shape or not finite")
+    del logits
+    walls = [wall]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del logits
+    by_kernel, _ = device_ms_by_kernel(lambda: prefill({"tokens": tokens}))
+    dev_ms = sum(by_kernel.values())
+    families = {}
+    for name, ms in by_kernel.items():
+        fam = _kernel_family(name)
+        families[fam] = families.get(fam, 0.0) + ms
+    d, ff, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    qkv_o = 2 * d * cfg.n_heads * cfg.hd + 2 * d * cfg.n_kv_heads * cfg.hd
+    s = LM_PREFILL_S
+    weight_flops = 2.0 * s * (n_layers * (qkv_o + 3 * d * ff) + d * v)
+    attn_flops = 4.0 * cfg.n_heads * (s * (s + 1) / 2) * cfg.hd * n_layers
+    flops = weight_flops + attn_flops
+    moved = param_bytes + s * v * 2
+    out["prefill"] = dict(
+        batch=1, seq=s, launches=launches, wall_s=walls[0],
+        wall_s_repeats=walls[1:], tokens_per_s=s / min(walls),
+        device_ms=dev_ms, flash_device_ms=families.get(
+            "flash_attention (hand kernel)", 0.0),
+        flash_share_of_device_time=families.get(
+            "flash_attention (hand kernel)", 0.0) / dev_ms,
+        device_ms_by_family=families,
+        top_kernels_ms=dict(list(by_kernel.items())[:8]),
+        flops=flops, weight_flops=weight_flops, attention_flops=attn_flops,
+        bytes=moved,
+        bound_s=max(flops / PEAK_FLOPS["bfloat16"], moved / HBM_BYTES_PER_S),
+        forward_max_memory_allocated_bytes=forward_peak,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(device))
+    out["prefill"]["share_of_bound"] = out["prefill"]["bound_s"] / min(walls)
+    del tokens
+
+    # ---- decode: the serve decode loop, counts at 0 just before
+    b, pl_, g = LM_DECODE
+    prompts = torch.from_numpy(serve.make_prompts(cfg.vocab_size, b, pl_)
+                               ).to(device)
+    reset()
+    res = serve.run_decode(model, prompts, g)
+    dec_launches = counts()
+    gen = res["tokens"]
+    check(gen.shape == (b, g) and ((gen >= 0) & (gen < v)).all(),
+          f"lm decode: generated tokens {gen.shape} out of range")
+    check(dec_launches["route_flash"] == dec_launches["route_chunked"] == 0,
+          f"lm decode: {dec_launches}; decode steps call no prefill route")
+    step = build_serve_step(model)
+    with torch.inference_mode():
+        cache = model.init_cache(b, pl_ + g + 1)
+        tok = prompts[:, :1]
+        step_kernels, step_launches = device_ms_by_kernel(
+            lambda: step(cache, tok, pl_ + g))
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for c in cache for t in c.values())
+        del cache
+    step_ms = res["decode_s"] / g * 1e3
+    read = param_bytes - model.embed.numel() * model.embed.element_size() \
+        + b * d * model.embed.element_size() + cache_bytes
+    bound_ms = read / HBM_BYTES_PER_S * 1e3
+    out["decode"] = dict(
+        batch=b, prompt=pl_, gen=g, launches=dec_launches,
+        prefill_by_steps_s=res["prefill_s"],
+        prefill_by_steps_tokens_per_s=b * pl_ / res["prefill_s"],
+        decode_s=res["decode_s"], ms_per_step=step_ms,
+        tokens_per_s=b * g / res["decode_s"],
+        bytes_per_step=read, bound_ms_per_step=bound_ms,
+        share_of_bound=bound_ms / step_ms,
+        device_launches_per_step=step_launches,
+        device_ms_per_step=sum(step_kernels.values()),
+        device_idle_share=1.0 - sum(step_kernels.values()) / step_ms,
+        first_generated=gen[:2, :8].tolist())
+
+    # ---- (a) flash route against the chunked route, first 2 layers
+    nl, cb, cs = LM_ROUTES_CHECK
+    sub = _first_layers(model, nl)
+    toks = torch.from_numpy(rng.integers(0, v, (cb, cs))).to(device)
+    with torch.inference_mode():
+        reset()
+        lf = sub(toks)
+        flash_counts = counts()
+        reset()
+        lc = sub(toks, force_chunked=True)
+        chunked_counts = counts()
+    check(flash_counts == dict(flash_kernel=nl, route_flash=nl,
+                               route_chunked=0)
+          and chunked_counts == dict(flash_kernel=0, route_flash=0,
+                                     route_chunked=nl),
+          f"lm routes check: flash run {flash_counts}, chunked run "
+          f"{chunked_counts}")
+    out["check_routes"] = dict(layers=nl, batch=cb, seq=cs,
+                               **_logits_check(lf, lc, "lm flash vs chunked"))
+    del lf, lc, sub, toks
+
+    # ---- (b) decode_step against one forward, all layers
+    toks = torch.from_numpy(rng.integers(0, v, (1, LM_DECODE_CHECK_S))
+                            ).to(device)
+    step = build_serve_step(model)
+    with torch.inference_mode():
+        fwd = prefill({"tokens": toks})
+        cache = model.init_cache(1, LM_DECODE_CHECK_S)
+        dec = torch.cat([step(cache, toks[:, i:i + 1], i)
+                         for i in range(LM_DECODE_CHECK_S)], dim=1)
+    out["check_decode"] = dict(
+        layers=n_layers, seq=LM_DECODE_CHECK_S,
+        **_logits_check(dec, fwd, "lm decode_step vs forward"))
+    del fwd, dec, cache, toks, model, prefill, step
+    torch.cuda.synchronize()
+    out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
+        device)
+    torch.cuda.empty_cache()
+    out["card"] = card_line()
+    return out
+
+
+
 # --------------------------------------------------------------- main path
 
 
@@ -762,6 +1037,21 @@ def workload_cases(device):
                   kernel_route=plan.route, tile=plan.tile, args=qkv)
              for c in (True, False)]
     return bsr, flash
+
+
+def lm_flash_case(device):
+    """The flash kernel at the LM prefill's attention shape: one sequence of
+    32,768, ``mistral-nemo-12b``'s 32 query heads of 128, causal, bf16."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_plan
+    gen = torch.Generator(device=device).manual_seed(3)
+    b, h, s, hd = 1, 32, LM_PREFILL_S, 128
+    qkv = tuple((torch.randn((b, h, s, hd), generator=gen, device=device)
+                 * sc).to(torch.bfloat16) for sc in (0.3, 0.3, 1.0))
+    plan = flash_plan(torch.bfloat16, s, hd)
+    return dict(name=f"lm_B{b}_H{h}_S{s}_hd{hd}_causal", causal=True, B=b,
+                H=h, S=s, hd=hd, dtype="bfloat16", kernel_route=plan.route,
+                tile=plan.tile, args=qkv, main_path="lm_prefill")
 
 
 def kernel_path(bsr_cases, flash_cases):
@@ -950,6 +1240,23 @@ def _scaled_check(a, b, name, what):
     return float(err.max()), atol, share
 
 
+def _row_scaled_check(a, b, name, what):
+    """The limit above with ``rms`` taken over each output row (the last
+    axis) instead of the whole tensor; returns (largest absolute error,
+    largest error as a share of its row's limit).  For causal attention
+    at long S: the rows' sizes fall with the number of keys (~1/sqrt), so
+    one rms over all rows sets the limit of the early rows by the size of
+    the late ones."""
+    a, b = a.float(), b.float()
+    atol = ATOL_RMS * b.pow(2).mean(-1, keepdim=True).sqrt()
+    err = (a - b).abs()
+    share = float((err / (atol + RTOL_BF16 * b.abs())).max())
+    check(bool((atol > 0).all()) and share <= 1.0,
+          f"{name}: kernel vs {what}: error is {share:.3g} of the per-row "
+          f"limit ({ATOL_RMS}*rms(row) + {RTOL_BF16}*|x|)")
+    return float(err.max()), share
+
+
 def bsr_checks(device, bsr_cases):
     """bsr_spmm on the card against its plain version: the reference's
     test shapes in fp32 and bf16, an empty block-row, the all-zero matrix,
@@ -1044,9 +1351,10 @@ def bsr_checks(device, bsr_cases):
     return results
 
 
-def flash_checks(device, flash_cases):
+def flash_checks(device, flash_cases, lm_case):
     import numpy as np
     import torch
+    from repro_torch.models.attention import attention
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain,
                                                      flash_plan)
@@ -1108,6 +1416,21 @@ def flash_checks(device, flash_cases):
         results.append(dict(case=c["name"], dtype=c["dtype"],
                             max_abs_err=c["max_abs_err"], rtol=RTOL_BF16,
                             atol=c["atol"], err_over_tol=c["err_over_tol"]))
+    # the LM shape: the plain version's Python loop over 32,896 tile pairs
+    # is skipped; the model's chunked route (fp32 scores and softmax) is
+    # the PyTorch version held against the kernel there, row by row
+    c = lm_case
+    o = flash_attention(*c["args"], causal=True)
+    q, k, v = (t.transpose(1, 2) for t in c["args"])
+    ref = attention(q, k, v, causal=True, chunk=1024, force_chunked=True)
+    c["max_abs_err"], c["err_over_tol"] = _row_scaled_check(
+        o, ref.transpose(1, 2), c["name"], "the chunked route")
+    c["rtol"], c["atol"] = RTOL_BF16, f"{ATOL_RMS}*rms(row)"
+    results.append(dict(case=c["name"], dtype=c["dtype"],
+                        against="the model's chunked route",
+                        max_abs_err=c["max_abs_err"], rtol=RTOL_BF16,
+                        atol=c["atol"], err_over_tol=c["err_over_tol"]))
+    del o, ref
     return results
 
 
@@ -1134,7 +1457,7 @@ def flash_bound(c):
             "operations" if t_ops >= t_bytes else "bytes", flops, moved)
 
 
-def kernel_timings(device, bsr_cases, flash_cases):
+def kernel_timings(device, bsr_cases, flash_cases, lm_case):
     """Device times at the workload shapes: kernel, plain version, one
     library call (a yardstick only: the package never calls it), and the
     bound computed from this run's inputs."""
@@ -1172,6 +1495,21 @@ def kernel_timings(device, bsr_cases, flash_cases):
             lambda: F.scaled_dot_product_attention(*a, is_causal=causal), 10,
             flush)
         c["bound_ms"], c["bound_by"], c["flops"], c["bytes"] = flash_bound(c)
+    from repro_torch.models.attention import attention
+    c = lm_case
+    a = c["args"]
+    c["ms"] = time_ms(lambda: flash_attention(*a, causal=True), 5, flush)
+    c["plain_ms"] = None
+    c["plain_note"] = ("plain version skipped at this size (a Python loop "
+                       "over 32,896 tile pairs); chunked_ms is the model's "
+                       "chunked route")
+    qt, kt, vt = (t.transpose(1, 2) for t in a)
+    c["chunked_ms"] = time_ms(lambda: attention(
+        qt, kt, vt, causal=True, chunk=1024, force_chunked=True), 1, flush)
+    c["graph_ms"] = graph_ms(lambda: flash_attention(*a, causal=True), 5)
+    c["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(*a, is_causal=True), 5, flush)
+    c["bound_ms"], c["bound_by"], c["flops"], c["bytes"] = flash_bound(c)
 
 
 def _case_row(c):
@@ -1179,7 +1517,8 @@ def _case_row(c):
             "atol", "err_over_tol", "ms", "graph_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "flops", "bytes")
     row = {k: c[k] for k in keys}
-    for key in ("rows_fastest", "ms_other_grid_order"):
+    for key in ("rows_fastest", "ms_other_grid_order", "main_path",
+                "plain_note", "chunked_ms"):
         if key in c:
             row[key] = c[key]
     row["tflops"] = c["flops"] / (c["ms"] * 1e-3) / 1e12
@@ -1187,16 +1526,19 @@ def _case_row(c):
     return row
 
 
-def kernel_table(bsr_cases, flash_cases, launches):
+def kernel_table(bsr_cases, flash_cases, lm_case, launches):
     """One entry per kernel; the headline numbers are those of its
-    largest main-path shape, every shape is under ``cases``."""
+    largest kernel-path shape, every shape is under ``cases``.
+    ``launches`` sums the main paths' counts, ``launches_by_path`` holds
+    each (``lm_prefill``: one forward of the LM)."""
     def entry(name, source, replaces, cases, head):
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
             kernel_route="/".join(sorted({c["kernel_route"] for c in cases})),
-            launches=launches[name], shape=head["name"],
+            launches=sum(launches[name].values()),
+            launches_by_path=launches[name], shape=head["name"],
             max_abs_err=max(c["max_abs_err"] for c in cases),
-            tol=f"{ATOL_RMS}*rms + {RTOL_BF16}*|x|",
+            tol=f"{ATOL_RMS}*rms + {RTOL_BF16}*|x| (lm case: rms per row)",
             err_over_tol=max(c["err_over_tol"] for c in cases),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
@@ -1207,8 +1549,8 @@ def kernel_table(bsr_cases, flash_cases, launches):
               "src/repro/kernels/bsr_spmm.py:89", bsr_cases, bsr_cases[1]),
         entry("flash_attention",
               "src/repro_torch/kernels/csrc/flash_attention.cu",
-              "src/repro/kernels/flash_attention.py:87", flash_cases,
-              flash_cases[0]),
+              "src/repro/kernels/flash_attention.py:87",
+              flash_cases + [lm_case], flash_cases[0]),
     ]
 
 
@@ -1230,6 +1572,8 @@ def main(argv=None) -> int:
     # float32 products in full float32, here and in every plain version
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products reduce in fp32, as the reference's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     device = torch.device("cuda", 0)
     # the port's package first: where it is missing nothing is printed
     from repro_torch.kernels import _build
@@ -1265,18 +1609,24 @@ def main(argv=None) -> int:
     emit(report["search"])
 
     for name, phase in (("fleet", fleet_phase), ("serve", serve_phase),
-                        ("evaluator", evaluator_phase)):
+                        ("lm", lm_phase), ("evaluator", evaluator_phase)):
         t0 = time.perf_counter()
         report[name] = phase(device)
         report[name]["seconds"] = time.perf_counter() - t0
         emit(report[name])
 
     t0 = time.perf_counter()
+    lm_case = lm_flash_case(device)
     checks = dict(bsr_spmm=bsr_checks(device, bsr_cases),
-                  flash_attention=flash_checks(device, flash_cases))
-    kernel_timings(device, bsr_cases, flash_cases)
+                  flash_attention=flash_checks(device, flash_cases, lm_case))
+    kernel_timings(device, bsr_cases, flash_cases, lm_case)
     torch.cuda.synchronize()
-    table = kernel_table(bsr_cases, flash_cases, launches)
+    by_path = dict(
+        bsr_spmm=dict(kernel_path=launches["bsr_spmm"]),
+        flash_attention=dict(
+            kernel_path=launches["flash_attention"],
+            lm_prefill=report["lm"]["prefill"]["launches"]["flash_kernel"]))
+    table = kernel_table(bsr_cases, flash_cases, lm_case, by_path)
     report["kernels"] = dict(
         phase="kernels", checks_passed={k: len(v) for k, v in checks.items()},
         checks=checks, kernels=table, seconds=time.perf_counter() - t0)

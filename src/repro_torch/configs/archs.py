@@ -1,15 +1,21 @@
 """The registered ACCELERATOR topologies (repro_torch.core.arch.ArchSpec)
-that extend the paper's fixed DRAM/GLB/PE/MAC hierarchy: the accelerator
-half of the JAX package's ``configs/archs.py``.  The measured pad-policy
-tables and the LM model family of that module are not part of this
-package yet.
+that extend the paper's fixed DRAM/GLB/PE/MAC hierarchy, and the LM
+model family (exact hyperparameters from the assignment table) with its
+reduced smoke variants: the JAX package's ``configs/archs.py`` without
+its measured pad-policy tables.
+
+Vocab sizes that do not divide the TP degree (16) are padded up to the
+next multiple of 16 (noted per config) — embedding sharding needs even
+shards; the pad rows are never addressed by the tokenizer stub.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 from repro_torch.core.arch import ArchSpec, register_arch
 from repro_torch.core.arch_dsl import compile_arch
+from repro_torch.models.config import BlockSpec, ModelConfig
 
 # ----------------------------------------------------- accelerator archs
 #
@@ -255,3 +261,154 @@ def zoo_validation_report() -> Dict[str, Dict[str, float]]:
             "sm_reduction_fanout": d.edge_noc[1].reduction_fanout,
         },
     }
+
+
+# --------------------------------------------------------------- LM family
+
+XLSTM_350M = ModelConfig(
+    name="xlstm-350m", family="ssm",
+    # 24L = (mLSTM + sLSTM) x 12, d_model=1024, 4 heads (GQA kv=4), d_ff=0
+    # (xLSTM blocks carry their own up/down projections), vocab 50304
+    # [arXiv:2405.04517]
+    d_model=1024, n_heads=4, n_kv_heads=4, d_ff=0, vocab_size=50304,
+    pattern=(BlockSpec("mlstm"), BlockSpec("slstm")), n_super=12,
+    tie_embeddings=True, subquadratic=True, remat="none",
+)
+
+MISTRAL_NEMO_12B = ModelConfig(
+    name="mistral-nemo-12b", family="dense",
+    # 40L d_model=5120 32H (GQA kv=8) d_ff=14336 vocab=131072, hd=128,
+    # 128k ctx [hf:mistralai/Mistral-Nemo-Base-2407]
+    d_model=5120, n_heads=32, n_kv_heads=8, head_dim=128,
+    d_ff=14336, vocab_size=131072,
+    pattern=(BlockSpec("attn"),), n_super=40,
+    rope_theta=1_000_000.0,
+)
+
+GEMMA3_12B = ModelConfig(
+    name="gemma3-12b", family="dense",
+    # 48L d_model=3840 16H (GQA kv=8) d_ff=15360 vocab=262144 — 5:1
+    # local:global, 128k ctx [hf:google/gemma-3 family]
+    d_model=3840, n_heads=16, n_kv_heads=8, head_dim=256,
+    d_ff=15360, vocab_size=262144,
+    pattern=(BlockSpec("attn_local", repeat=5), BlockSpec("attn")),
+    n_super=8, sliding_window=1024, rope_theta=1_000_000.0,
+    # long_500k runs: 5/6 of layers are O(window) in decode; global layers'
+    # KV caches are sequence-sharded (DESIGN.md §4)
+    subquadratic=True,
+)
+
+STARCODER2_7B = ModelConfig(
+    name="starcoder2-7b", family="dense",
+    # 32L d_model=4608 36H (GQA kv=4) d_ff=18432 vocab=49152, RoPE
+    # [arXiv:2402.19173]
+    d_model=4608, n_heads=36, n_kv_heads=4, head_dim=128,
+    d_ff=18432, vocab_size=49152,
+    pattern=(BlockSpec("attn"),), n_super=32,
+    mlp_kind="gelu",    # StarCoder2 uses a 2-matrix GELU MLP
+)
+
+COMMAND_R_35B = ModelConfig(
+    name="command-r-35b", family="dense",
+    # 40L d_model=8192 64H (GQA kv=8) d_ff=22528 vocab=256000, no-bias
+    # [hf:CohereForAI/c4ai-command-r-v01]
+    d_model=8192, n_heads=64, n_kv_heads=8, head_dim=128,
+    d_ff=22528, vocab_size=256000,
+    pattern=(BlockSpec("attn"),), n_super=40,
+)
+
+KIMI_K2_1T = ModelConfig(
+    name="kimi-k2-1t-a32b", family="moe",
+    # 61L d_model=7168 64H (GQA kv=8) expert d_ff=2048 vocab=163840,
+    # MoE 384 experts top-8 [arXiv:2501.* Kimi K2]
+    d_model=7168, n_heads=64, n_kv_heads=8, head_dim=112,
+    d_ff=2048, vocab_size=163840,
+    pattern=(BlockSpec("moe"),), n_super=61,
+    n_experts=384, top_k=8, moe_d_ff=2048,
+)
+
+ARCTIC_480B = ModelConfig(
+    name="arctic-480b", family="moe",
+    # 35L d_model=7168 56H (GQA kv=8) d_ff=4864 vocab=32000,
+    # MoE 128e top-2 + dense residual [hf:Snowflake/snowflake-arctic-base]
+    d_model=7168, n_heads=56, n_kv_heads=8, head_dim=128,
+    d_ff=4864, vocab_size=32000,
+    pattern=(BlockSpec("moe"),), n_super=35,
+    n_experts=128, top_k=2, moe_d_ff=4864, moe_dense_residual=True,
+)
+
+QWEN2_VL_7B = ModelConfig(
+    name="qwen2-vl-7b", family="vlm",
+    # 28L d_model=3584 28H (GQA kv=4) d_ff=18944 vocab=152064 — M-RoPE,
+    # dynamic resolution [arXiv:2409.12191]; vision frontend is a STUB:
+    # input_specs provides precomputed patch embeddings.
+    d_model=3584, n_heads=28, n_kv_heads=4, head_dim=128,
+    d_ff=18944, vocab_size=152064,
+    pattern=(BlockSpec("attn"),), n_super=28,
+    m_rope=True, frontend="vision", n_frontend_tokens=256,
+)
+
+SEAMLESS_M4T_V2 = ModelConfig(
+    name="seamless-m4t-large-v2", family="audio",
+    # enc-dec, 24 encoder + 24 decoder layers of d_model=1024 16H
+    # (GQA kv=16) d_ff=8192 [arXiv:2308.11596]; vocab 256206 padded to
+    # 256208 (divisibility by TP=16); audio frontend is a STUB
+    # (precomputed frame embeddings via input_specs).
+    d_model=1024, n_heads=16, n_kv_heads=16, d_ff=8192,
+    vocab_size=256208,
+    pattern=(BlockSpec("attn_cross"),), n_super=24, n_enc_layers=24,
+    frontend="audio", remat="none",
+)
+
+ZAMBA2_2P7B = ModelConfig(
+    name="zamba2-2.7b", family="hybrid",
+    # 54L d_model=2560 32H (GQA kv=32) d_ff=10240, ssm_state=64 —
+    # Mamba2 blocks + SHARED attention block [arXiv:2411.15242]
+    d_model=2560, n_heads=32, n_kv_heads=32, d_ff=10240,
+    vocab_size=32000,
+    pattern=(BlockSpec("mamba2", repeat=5), BlockSpec("shared_attn")),
+    n_super=9, ssm_state=64, subquadratic=True, remat="none",
+)
+
+ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (
+    XLSTM_350M, MISTRAL_NEMO_12B, GEMMA3_12B, STARCODER2_7B,
+    COMMAND_R_35B, KIMI_K2_1T, ARCTIC_480B, QWEN2_VL_7B,
+    SEAMLESS_M4T_V2, ZAMBA2_2P7B)}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
+    return ARCHS[name]
+
+
+def smoke_config(name: str) -> ModelConfig:
+    """Reduced same-family config for CPU smoke tests: tiny widths, few
+    layers/experts, tiny vocab.  Full configs are exercised only via the
+    ShapeDtypeStruct dry-run."""
+    c = get_config(name)
+    kw = dict(
+        name=c.name + "-smoke",
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(c.n_kv_heads, 4),
+        head_dim=16,
+        d_ff=128 if c.d_ff else 0,
+        vocab_size=512,
+        n_super=2,
+        sliding_window=32,
+        attention_chunk=0,
+        ssm_chunk=16,
+        remat="none",
+    )
+    if c.n_experts:
+        kw.update(n_experts=8, top_k=min(c.top_k, 2), moe_d_ff=64)
+    if c.n_enc_layers:
+        kw.update(n_enc_layers=2)
+    if c.frontend:
+        kw.update(n_frontend_tokens=8)
+    if c.family == "ssm":
+        kw.update(head_dim=None)
+    if c.family == "hybrid":
+        kw.update(head_dim=None, n_kv_heads=4, ssm_state=16)
+    return dataclasses.replace(c, **kw)

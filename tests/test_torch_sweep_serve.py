@@ -489,12 +489,14 @@ def test_sweep_server_subprocess_smoke(subprocess_env):
 
 @pytest.mark.slow
 def test_serve_dispatch_help(subprocess_env):
-    """Top-level serve --help names both modes and marks decode as not
-    ported; sweep --help is accurate to its flags; decode and bare flags
-    exit non-zero naming the roadmap item that ports it."""
+    """Top-level serve --help names both modes and decode's flags; sweep
+    --help is accurate to its flags; decode --help lists its own; decode
+    and bare flags without --device, where no GPU is visible, exit
+    non-zero saying so before building anything."""
     env = subprocess_env()
+    no_gpu = dict(env, CUDA_VISIBLE_DEVICES="")
 
-    def run(args):
+    def run(args, env=env):
         return subprocess.run([sys.executable, "-m",
                                "repro_torch.launch.serve"] + args,
                               capture_output=True, text=True, env=env,
@@ -503,12 +505,23 @@ def test_serve_dispatch_help(subprocess_env):
     top = run(["--help"])
     assert top.returncode == 0
     assert "sweep" in top.stdout and "decode" in top.stdout
-    assert "NOT PORTED YET" in top.stdout
+    assert "NOT PORTED" not in top.stdout
+    for flag in ("--arch", "--smoke", "--batch", "--prompt-len", "--gen",
+                 "--device"):
+        assert flag in top.stdout
     sw = run(["sweep", "--help"])
     assert sw.returncode == 0
     assert "--checkpoint-dir" in sw.stdout and "--device" in sw.stdout
     assert "--batch" not in sw.stdout
-    for args in (["decode", "--arch", "gemma3-12b"], ["--smoke"]):
-        dec = run(args)
+    dh = run(["decode", "--help"])
+    assert dh.returncode == 0
+    for flag in ("--arch", "--smoke", "--batch", "--prompt-len", "--gen",
+                 "--device"):
+        assert flag in dh.stdout
+    assert "--checkpoint-dir" not in dh.stdout
+    for args in (["decode", "--smoke"], ["decode", "--arch", "gemma3-12b"],
+                 ["--smoke"]):
+        dec = run(args, env=no_gpu)
         assert dec.returncode != 0
-        assert "item 9" in dec.stderr and "not ported" in dec.stderr
+        assert "no CUDA device" in dec.stderr
+        assert "serve ok" not in dec.stdout
