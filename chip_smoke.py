@@ -31,9 +31,22 @@ where there is no CUDA device or the port's package is missing.  It
    ``serve decode`` loop (batch 4, prompt 64, 32 generated), the flash
    route against the chunked route on the first 2 layers and 256
    ``decode_step`` calls against one forward;
-6. holds the GPU evaluator against the CPU one on 262,144 genomes per
+6. drives the paper's tables (``benchmarks/paper_tables_torch.py``):
+   Table IV at the paper's budget of 20,000 — 28 workloads x 3 platforms
+   x 3 methods, one ``run_method_sweep`` fleet per platform — with every
+   finite best EDP against the numpy oracle and three rows against
+   ``table_iv`` run one search at a time, bit for bit; then the LLM-GEMM
+   scenario ``examples/search_accelerator_torch.py`` at its defaults;
+7. trains ``mistral-nemo-12b`` at full width with its depth cut to 8
+   layers (``launch.train.run_train``: seq 4,096, batch 1, remat "full",
+   8 steps), times the steps beside their bound and splits a step's device
+   time by family, and checks that the flash kernel was not launched
+   (the kernel has no backward), that every layer's ``wq``/``wk``/``wv``
+   gets a gradient, that 2 microbatches give 1's loss and gradients, and
+   that a 2-layer model's loss falls on a fixed batch;
+8. holds the GPU evaluator against the CPU one on 262,144 genomes per
    workload and measures its rows per second;
-7. holds each kernel against its plain PyTorch version on the card — the
+9. holds each kernel against its plain PyTorch version on the card — the
    reference's test shapes, the edges of each route's tiles (half a query
    tile, empty, fully dense and all-zero block-rows, every column tile) and
    the workload shapes; at the LM prefill's attention shape against the
@@ -51,6 +64,7 @@ object per phase goes to standard output; the second to last line is the
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -754,6 +768,10 @@ def _logits_check(a, b, name):
                 elementwise_share_of_kernel_limit=share)
 
 
+def _is_annotation(e):
+    return bool(getattr(e, "is_user_annotation", False))
+
+
 def device_ms_by_kernel(fn):
     """Device time of one call of ``fn`` per kernel name, from
     ``torch.profiler`` (ms), sorted by time, and the count of device
@@ -767,7 +785,8 @@ def device_ms_by_kernel(fn):
         torch.cuda.synchronize()
     times, n = {}, 0
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not _is_annotation(e):
             times[e.name] = times.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
             n += 1
@@ -967,6 +986,440 @@ def lm_phase(device):
     out["card"] = card_line()
     return out
 
+
+
+# ------------------------------------------------------------------ tables
+
+TABLES_BUDGET = 20_000          # the paper's budget per search
+TABLES_PLATFORMS = ("edge", "mobile", "cloud")
+TABLES_DEVICE_ROUNDS = 1
+# rows rerun one search at a time through paper_tables_torch.table_iv,
+# one on each platform; each compares all three methods
+TABLES_SEQUENTIAL_ROWS = (("mm1", "edge"), ("conv4", "mobile"),
+                          ("mm8", "cloud"))
+# examples/search_accelerator_torch.py at its defaults (budget 4,000)
+SCENARIO_ARGS = ()
+SCENARIO_BUDGET = 4000
+
+
+def _same_float(a, b):
+    return (math.isnan(a) and math.isnan(b)) or a == b
+
+
+def _geomean(xs):
+    xs = [x for x in xs if math.isfinite(x) and x > 0]
+    return math.exp(sum(math.log(x) for x in xs) / len(xs)) if xs else None
+
+
+def _load_example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tables_phase(device):
+    """The paper's Table IV at its budget of 20,000: the 28 Table III
+    workloads x 3 methods as one ``run_method_sweep`` fleet per platform
+    (one generation a round, as ``search.run`` takes them),
+    each finite best EDP held against the float64 numpy oracle on its
+    decoded design, three rows against ``paper_tables_torch.table_iv`` run
+    one search at a time (bit for bit); then the LLM-GEMM scenario,
+    ``examples/search_accelerator_torch.py`` at its defaults."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    from benchmarks import paper_tables_torch as tables
+    from repro_torch.configs.paper_workloads import all_workloads
+    from repro_torch.core import search
+
+    methods = list(tables.TABLE_IV_METHODS)
+    wls = all_workloads()
+    out = dict(budget=TABLES_BUDGET, workloads=len(wls), methods=methods,
+               platforms=list(TABLES_PLATFORMS))
+    rows, fleets, n_oracle = [], [], 0
+    t_grid = time.perf_counter()
+    for plat in TABLES_PLATFORMS:
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # one generation a round: the computation of table_iv's one
+        # search at a time (device segments of k > 1 generations take
+        # another trajectory, in the reference too)
+        grid = search.run_method_sweep(methods, wls, plat,
+                                       budget=TABLES_BUDGET, seed=0,
+                                       stats_out=stats, device=device,
+                                       device_rounds=TABLES_DEVICE_ROUNDS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(stats["device"].startswith("cuda"),
+              f"tables {plat}: the fleet is not on the GPU")
+        for wl in wls:
+            for m in methods:
+                res = grid[m][wl.name]
+                check(res.evals == TABLES_BUDGET,
+                      f"tables {m}/{wl.name}@{plat}: {res.evals} evals != "
+                      f"{TABLES_BUDGET}")
+                if not np.isfinite(res.best_edp):
+                    continue
+                rep = search.report_best(wl, plat, res)
+                check(rep is not None and rep.valid,
+                      f"tables {m}/{wl.name}@{plat}: the numpy oracle calls "
+                      f"the best design invalid")
+                lg, lg_o = float(np.log10(res.best_edp)), float(
+                    np.log10(rep.edp))
+                check(abs(lg - lg_o) <= LG_TOL * max(abs(lg_o), 1.0),
+                      f"tables {m}/{wl.name}@{plat}: log10 EDP {lg} vs "
+                      f"oracle {lg_o}")
+                n_oracle += 1
+            rows.append(tables.table_iv_row(
+                wl.name, plat, {m: grid[m][wl.name].best_edp
+                                for m in methods}))
+        fleets.append(dict(platform=plat, searches=len(wls) * len(methods),
+                           wall_s=wall, rounds=stats["rounds"],
+                           dispatches=stats["dispatches"],
+                           host_syncs=stats["host_syncs"],
+                           device_rounds=stats["device_rounds"],
+                           signatures=len(stats["signatures"]),
+                           host_blocked_s=stats["host_blocked_s"]))
+    out["grid_wall_s"] = time.perf_counter() - t_grid
+    out["fleets"] = fleets
+    out["oracle_checked"] = n_oracle
+    out["geomean_speedup_vs_sparseloop"] = _geomean(
+        [r["speedup_vs_sparseloop"] for r in rows])
+    out["geomean_speedup_vs_sage"] = _geomean(
+        [r["speedup_vs_sage"] for r in rows])
+    out["rows_with_finite_sparsemap"] = sum(
+        1 for r in rows if math.isfinite(r["sparsemap"]))
+    out["rows"] = rows
+
+    # three rows again, one search at a time, through table_iv itself
+    by_key = {(r["workload"], r["platform"]): r for r in rows}
+    seq = []
+    out_dir = tables.OUT_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        tables.OUT_DIR = tmp        # table_iv writes its CSV; keep none
+        for wname, plat in TABLES_SEQUENTIAL_ROWS:
+            t0 = time.perf_counter()
+            (row,) = tables.table_iv(budget=TABLES_BUDGET, seed=0,
+                                     platforms=(plat,),
+                                     workload_names=[wname], device=device)
+            torch.cuda.synchronize()
+            fleet_row = by_key[(wname, plat)]
+            check(list(row) == list(fleet_row) and all(
+                _same_float(row[k], fleet_row[k]) if isinstance(row[k], float)
+                else row[k] == fleet_row[k] for k in row),
+                f"tables: table_iv row {wname}@{plat} one search at a time "
+                f"{row} differs from the fleet's {fleet_row}")
+            seq.append(dict(workload=wname, platform=plat,
+                            wall_s=time.perf_counter() - t0))
+    tables.OUT_DIR = out_dir
+    out["sequential_rows_bit_equal"] = seq
+
+    # the LLM-GEMM scenario at its defaults
+    example = _load_example("search_accelerator_torch")
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        grids = example.main(list(SCENARIO_ARGS))
+    torch.cuda.synchronize()
+    scen_wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for plat, grid in grids.items():
+        for m, g in grid.items():
+            for w, r in g.items():
+                check(r.evals == SCENARIO_BUDGET,
+                      f"scenario {m}/{w}@{plat}: {r.evals} evals")
+    out["scenario"] = dict(
+        args=list(SCENARIO_ARGS) or "defaults (kimi-k2-1t-a32b, budget "
+        "4000, edge,cloud)", wall_s=scen_wall,
+        platforms=sorted(grids), lines=lines)
+    out["card"] = card_line()
+    return out
+
+
+# ------------------------------------------------------------------- train
+
+TRAIN_ARCH = LM_ARCH
+TRAIN_LAYERS = 8        # n_super: 3.52 B parameters, ~42 GB with moments
+TRAIN_SEQ = 4096        # train_4k's length; its batch of 256 is a pod's
+TRAIN_BATCH = 1
+TRAIN_STEPS = 8
+TRAIN_WARMUP = 2        # steps left out of the step time
+# checks (3) and (4): a 2-layer fp32 model of the same width, batch 2
+TRAIN_CHECK = (2, 2, 1024)      # layers, batch, sequence
+# check (3): microbatches 1 and 2 agree at fp32: the loss within
+# TRAIN_LOSS_RTOL of itself, each gradient leaf within TRAIN_GRAD_RTOL of
+# its largest element (two GEMM shapes sum in different orders)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+# check (4): ``tests/test_archs_smoke.py::test_loss_decreases_on_fixed_batch``
+# (lr 3e-3 at the smoke width d = 64) at full width.  Weights are drawn
+# with std 1/sqrt(d), and an AdamW step moves each by about lr, so the lr
+# is scaled by sqrt(64 / d) to keep the test's step-to-weight ratio: at
+# lr 3e-3 and d = 5,120 a step moves each weight by ~20 % of its size and
+# the loss climbs (both packages do the same on the CPU from d = 2,048).
+# The unscaled lr is run too, and recorded.
+TRAIN_LR_SMOKE = 3e-3
+TRAIN_CHECK_STEPS = 8
+TRAIN_MIN_DROP = 0.2
+# the optimizer's least traffic a step: read bf16 weight and gradient and
+# fp32 mu, nu; write bf16 weight and fp32 mu, nu
+OPT_BYTES_PER_PARAM = 2 + 2 + 8 + 2 + 8
+
+
+@contextlib.contextmanager
+def _labelled(module, attr, label, times=None):
+    """Run ``module.attr`` under ``torch.profiler.record_function(label)``
+    for the duration of the block (looked up at call time, so every
+    caller of the module attribute is labelled).  With ``times``, each
+    call also appends a pair of CUDA events recorded around it."""
+    import torch
+    fn = getattr(module, attr)
+
+    def wrapped(*a, **kw):
+        with torch.profiler.record_function(label):
+            if times is None:
+                return fn(*a, **kw)
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            try:
+                return fn(*a, **kw)
+            finally:
+                pair[1].record()
+                times.append(pair)
+
+    setattr(module, attr, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, attr, fn)
+
+
+#: the ranges a train step is labelled with while it is profiled, and the
+#: family of the kernels that run inside each range's span on the device
+TRAIN_LABELS = {
+    "repro.optimizer": "optimizer (AdamW apply)",
+    "repro.chunked_attention": "chunked attention, forward and recompute "
+                               "(its backward counts as GEMM and other)"}
+
+
+def device_ms_by_family(fn, labels):
+    """Device ms of one call of ``fn`` by family.  A record_function
+    range shows on the device timeline as a user annotation spanning the
+    kernels launched inside it: a kernel inside the span of a range named
+    in ``labels`` goes to that label's family, any other by its name
+    (``_kernel_family``).  Returns the families, the total device ms, the
+    number of device operations and the 15 longest kernel names (ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans, kernels = {}, []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if _is_annotation(e):
+            if e.name in labels:
+                spans.setdefault(labels[e.name], []).append(
+                    (e.time_range.start, e.time_range.end))
+            continue
+        kernels.append(e)
+    check(kernels, "torch.profiler saw no device operation")
+    fams, by_name = {}, {}
+    for e in kernels:
+        a, b = e.time_range.start, e.time_range.end
+        fam = next((f for f, iv in spans.items()
+                    if any(s <= a and b <= t for s, t in iv)), None) or \
+            _kernel_family(e.name)
+        ms = e.time_range.elapsed_us() / 1e3
+        fams[fam] = fams.get(fam, 0.0) + ms
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:15])
+    return (dict(sorted(fams.items(), key=lambda kv: -kv[1])),
+            sum(fams.values()), len(kernels), top)
+
+
+def train_flops(cfg, batch, seq):
+    """Model FLOPs of one training step: 3 x the forward's (its weight
+    products and causal attention; remat's recompute not counted)."""
+    d, ff, v, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    qkv_o = 2 * d * cfg.n_heads * cfg.hd + 2 * d * cfg.n_kv_heads * cfg.hd
+    tokens = batch * seq
+    weights = 2.0 * tokens * (L * (qkv_o + 3 * d * ff) + d * v)
+    attn = 4.0 * batch * cfg.n_heads * (seq * (seq + 1) / 2) * cfg.hd * L
+    return 3.0 * (weights + attn), 3.0 * weights, 3.0 * attn
+
+
+def train_phase(device):
+    """Training on the card: ``mistral-nemo-12b`` at full width, depth cut
+    to 8 layers, bf16, ``SyntheticLM`` at seq 4,096, batch 1, remat
+    "full", 8 steps through ``launch.train.run_train``; then checks (2)
+    every layer's ``wq``/``wk``/``wv`` gets a nonzero finite gradient,
+    (3) microbatches 1 and 2 agree, (4) the loss of a 2-layer fp32 model
+    of the same width drops on a fixed batch."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.train import run_train
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models.model import Model
+    from repro_torch.optim import optimizer as opt
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_super=TRAIN_LAYERS)
+    check(cfg.remat == "full", f"{cfg.name}: remat {cfg.remat!r}")
+    out = dict(arch=TRAIN_ARCH, layers=cfg.n_layers, seq=TRAIN_SEQ,
+               batch=TRAIN_BATCH, steps=TRAIN_STEPS, remat=cfg.remat,
+               dtype=cfg.param_dtype)
+    lines = []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    flash_attention.launches = 0
+    attn_lib.attention.calls.update(flash=0, chunked=0)
+    t0 = time.perf_counter()
+    res = run_train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    device=device, log_every=1, log=lines.append)
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    launches = dict(flash_kernel=flash_attention.launches,
+                    route_flash=attn_lib.attention.calls["flash"],
+                    route_chunked=attn_lib.attention.calls["chunked"])
+    out["launches"] = launches
+    losses = res["losses"]
+    # check (1)
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"train: losses {losses}")
+    check(launches["flash_kernel"] == 0 and launches["route_flash"] == 0,
+          f"train: {launches}; training must not run the forward-only "
+          f"flash kernel")
+    model, state = res["model"], res["opt_state"]
+    n_params = sum(p.numel() for p in model.parameters())
+    step_s = res["step_s"][TRAIN_WARMUP:]
+    mean_s = sum(step_s) / len(step_s)
+    flops, w_flops, a_flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    opt_bytes = OPT_BYTES_PER_PARAM * n_params
+    bound_s = flops / PEAK_FLOPS["bfloat16"] + opt_bytes / HBM_BYTES_PER_S
+    out.update(
+        param_count=n_params, losses=losses, lines=lines,
+        step_s=res["step_s"], ms_per_step=mean_s * 1e3,
+        ms_per_step_median=sorted(step_s)[len(step_s) // 2] * 1e3,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / mean_s,
+        model_flops=flops, weight_flops=w_flops, attention_flops=a_flops,
+        optimizer_bytes=opt_bytes,
+        bound_ms=bound_s * 1e3,
+        bound_convention="3 x forward FLOPs (weight products + causal "
+        "attention, recompute excluded) at 989 TFLOP/s, plus the "
+        "optimizer's 22 bytes a parameter at 3.35 TB/s",
+        share_of_bound=bound_s / mean_s,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(device))
+
+    # device time of one more step by family
+    data = res["data"]
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in data.batch_at(TRAIN_STEPS).items()}
+    opt_events = []
+    with _labelled(attn_lib, "_attn_block", "repro.chunked_attention"), \
+            _labelled(opt, "apply", "repro.optimizer", opt_events):
+        fams, dev_ms, n_ops, top = device_ms_by_family(
+            lambda: float(res["train_step"](batch)["loss"]), TRAIN_LABELS)
+    out.update(device_ms_by_family=fams, device_ms=dev_ms,
+               device_ops_per_step=n_ops, top_kernels_ms=top,
+               optimizer_ms_by_cuda_events=sum(
+                   a.elapsed_time(b) for a, b in opt_events),
+               device_idle_share=1.0 - dev_ms / (mean_s * 1e3))
+
+    # check (2): every layer's wq, wk, wv gets a gradient through attention
+    _, grads = steps_lib.loss_and_grads(model, batch)
+    bad = []
+    for i in range(cfg.n_layers):
+        for w in ("wq", "wk", "wv"):
+            g = grads[f"blocks.{i}.attn.{w}"]
+            if not (bool(torch.isfinite(g).all()) and
+                    float(g.abs().max()) > 0):
+                bad.append(f"blocks.{i}.attn.{w}")
+    check(not bad, f"train: no nonzero finite gradient for {bad}")
+    out["check_attention_grads"] = dict(layers=cfg.n_layers,
+                                        leaves=3 * cfg.n_layers, ok=True)
+    del grads, res, model, state, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # check (3): microbatches 1 and 2, a 2-layer fp32 model of this width
+    nl, cb, cs = TRAIN_CHECK
+    cfg2 = dataclasses.replace(cfg, n_super=nl, param_dtype="float32",
+                               compute_dtype="float32")
+    model = Model(cfg2, device=device,
+                  generator=torch.Generator(device=device).manual_seed(1))
+    model.requires_grad_(True)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=cs,
+                                  global_batch=cb))
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in data.batch_at(0).items()}
+    l1, g1 = steps_lib.loss_and_grads(model, batch, 1)
+    l2, g2 = steps_lib.loss_and_grads(model, batch, 2)
+    loss_rel = abs(float(l1) - float(l2)) / abs(float(l1))
+    worst, worst_leaf = 0.0, None
+    for n in g1:
+        scale = float(g1[n].abs().max())
+        err = float((g1[n] - g2[n]).abs().max()) / max(scale, 1e-30)
+        if err > worst:
+            worst, worst_leaf = err, n
+    check(loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_RTOL,
+          f"train microbatches: loss rel {loss_rel:.3g} (limit "
+          f"{TRAIN_LOSS_RTOL}), gradient {worst_leaf} off by {worst:.3g} of "
+          f"its largest element (limit {TRAIN_GRAD_RTOL})")
+    out["check_microbatches"] = dict(
+        layers=nl, batch=cb, seq=cs, dtype="float32", loss_rel_err=loss_rel,
+        loss_rtol=TRAIN_LOSS_RTOL, worst_grad_err_over_max=worst,
+        worst_leaf=worst_leaf, grad_rtol=TRAIN_GRAD_RTOL)
+    del g1, g2
+
+    # check (4): the loss falls on a fixed batch, from the same weights at
+    # the width-scaled lr (checked) and at the smoke test's (recorded)
+    lr = TRAIN_LR_SMOKE * math.sqrt(64 / cfg.d_model)
+    runs = {}
+    for name, rate in (("scaled", lr), ("smoke_lr", TRAIN_LR_SMOKE)):
+        if name != "scaled":
+            del model
+            torch.cuda.empty_cache()
+            model = Model(cfg2, device=device, generator=torch.Generator(
+                device=device).manual_seed(1))
+            model.requires_grad_(True)
+        ocfg = opt.OptConfig(lr=rate, warmup_steps=1, total_steps=50)
+        step = steps_lib.build_train_step(
+            model, ocfg, opt.init(dict(model.named_parameters()), ocfg))
+        runs[name] = [float(step(batch)["loss"])
+                      for _ in range(TRAIN_CHECK_STEPS)]
+        del step
+    fixed = runs["scaled"]
+    check(all(map(math.isfinite, fixed)) and
+          fixed[-1] < fixed[0] - TRAIN_MIN_DROP,
+          f"train: the loss on a fixed batch went {fixed} at lr {lr:.3g}")
+    out["check_loss_decreases"] = dict(
+        layers=nl, batch=cb, seq=cs, lr=lr, losses=fixed,
+        drop=fixed[0] - fixed[-1], min_drop=TRAIN_MIN_DROP,
+        smoke_lr=TRAIN_LR_SMOKE, smoke_lr_losses=runs["smoke_lr"])
+    del model, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["card"] = card_line()
+    return out
 
 
 # --------------------------------------------------------------- main path
@@ -1530,7 +1983,8 @@ def kernel_table(bsr_cases, flash_cases, lm_case, launches):
     """One entry per kernel; the headline numbers are those of its
     largest kernel-path shape, every shape is under ``cases``.
     ``launches`` sums the main paths' counts, ``launches_by_path`` holds
-    each (``lm_prefill``: one forward of the LM)."""
+    each (``lm_prefill``: one forward of the LM; ``tables`` and ``train``:
+    those phases, which reach no kernel)."""
     def entry(name, source, replaces, cases, head):
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -1608,12 +2062,25 @@ def main(argv=None) -> int:
     report["search"]["seconds"] = time.perf_counter() - t0
     emit(report["search"])
 
-    for name, phase in (("fleet", fleet_phase), ("serve", serve_phase),
-                        ("lm", lm_phase), ("evaluator", evaluator_phase)):
+    for name, phase in (("fleet", fleet_phase), ("tables", tables_phase),
+                        ("serve", serve_phase), ("lm", lm_phase),
+                        ("train", train_phase),
+                        ("evaluator", evaluator_phase)):
         t0 = time.perf_counter()
+        bsr_spmm.launches = 0
+        flash_attention.launches = 0
         report[name] = phase(device)
+        report[name]["kernel_launches"] = dict(
+            bsr_spmm=bsr_spmm.launches,
+            flash_attention=flash_attention.launches)
         report[name]["seconds"] = time.perf_counter() - t0
         emit(report[name])
+    # neither the tables nor training reaches a kernel (nor do they in
+    # the reference): training runs the chunked route under autograd
+    for name in ("tables", "train"):
+        check(report[name]["kernel_launches"] == dict(bsr_spmm=0,
+                                                      flash_attention=0),
+              f"{name}: kernel launches {report[name]['kernel_launches']}")
 
     t0 = time.perf_counter()
     lm_case = lm_flash_case(device)
@@ -1622,10 +2089,14 @@ def main(argv=None) -> int:
     kernel_timings(device, bsr_cases, flash_cases, lm_case)
     torch.cuda.synchronize()
     by_path = dict(
-        bsr_spmm=dict(kernel_path=launches["bsr_spmm"]),
+        bsr_spmm=dict(kernel_path=launches["bsr_spmm"],
+                      tables=report["tables"]["kernel_launches"]["bsr_spmm"],
+                      train=report["train"]["kernel_launches"]["bsr_spmm"]),
         flash_attention=dict(
             kernel_path=launches["flash_attention"],
-            lm_prefill=report["lm"]["prefill"]["launches"]["flash_kernel"]))
+            lm_prefill=report["lm"]["prefill"]["launches"]["flash_kernel"],
+            tables=report["tables"]["kernel_launches"]["flash_attention"],
+            train=report["train"]["launches"]["flash_kernel"]))
     table = kernel_table(bsr_cases, flash_cases, lm_case, by_path)
     report["kernels"] = dict(
         phase="kernels", checks_passed={k: len(v) for k, v in checks.items()},

@@ -3,9 +3,9 @@ and conv1-conv13 (VGG16, 50% global pruning), plus structured-density
 sets — the sparseGPT SpMMs (mm8-mm10) carry their real 2:4
 block-pruning structure (``BlockNM(2, 4)``) rather than a uniform 50%
 scalar, and ``banded_attention_workloads`` adds windowed-attention
-score x value GEMMs with ``Banded`` operands.  (The JAX package's
-per-arch GEMM extraction, ``arch_gemms``, needs the LM configs and is not
-part of this package yet.)
+score x value GEMMs with ``Banded`` operands.  ``arch_gemms`` turns the
+dominant GEMMs of one of the package's LM configs into SpMM workloads (the
+LLM-GEMM scenario of ``examples/search_accelerator_torch.py``).
 """
 from __future__ import annotations
 
@@ -114,3 +114,31 @@ def by_name(name: str) -> Workload:
         if wl.name == name:
             return wl
     raise KeyError(name)
+
+
+# ---------------------------------------------------------------- archs
+
+
+def arch_gemms(arch_name: str, weight_density: float = 0.5,
+               act_density: float = 0.6, tokens: int = 512
+               ) -> List[Workload]:
+    """Extract the dominant GEMMs of an assigned architecture as SpTA
+    workloads (activations x pruned weights), so the paper's DSE runs on
+    this framework's own models (DESIGN.md §4)."""
+    from .archs import get_config
+    c = get_config(arch_name)
+    d, hd = c.d_model, c.hd
+    out = [
+        spmm(f"{arch_name}:qkv", tokens, d,
+             (c.n_heads + 2 * c.n_kv_heads) * hd,
+             act_density, weight_density),
+        spmm(f"{arch_name}:attn_out", tokens, c.n_heads * hd, d,
+             act_density, weight_density),
+    ]
+    ff = c.moe_d_ff if c.n_experts else c.d_ff
+    if ff:
+        out.append(spmm(f"{arch_name}:ffn_up", tokens, d, ff,
+                        act_density, weight_density))
+        out.append(spmm(f"{arch_name}:ffn_down", tokens, ff, d,
+                        act_density, weight_density))
+    return out

@@ -124,6 +124,13 @@ def _check(q, k, v, bq: int, bk: int) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def needs_grad(*ts) -> bool:
+    """Whether autograd records and one of ``ts`` (``None`` skipped)
+    requires a gradient: the kernel has no backward."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     fn = lib.repro_flash_attention
@@ -144,9 +151,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and ``S`` must also be a multiple of 64.
 
     CUDA tensors launch the CUDA kernel (or raise); CPU tensors take
-    :func:`flash_attention_plain`.
+    :func:`flash_attention_plain`.  Forward only, as the reference: an
+    input that requires a gradient while autograd records raises
+    ``RuntimeError`` on either device, so no call drops a gradient.
     """
     _check(q, k, v, bq, bk)
+    if needs_grad(q, k, v):
+        raise RuntimeError(
+            "flash_attention has no backward (nor has the reference's): "
+            "call it under torch.no_grad() / inference_mode, or on inputs "
+            "that need no gradient")
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal)
     b, h, s, hd = q.shape

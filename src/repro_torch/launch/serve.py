@@ -6,8 +6,8 @@ Two modes, dispatched on the first argument:
   loop with KV cache over synthetic prompts; reports tokens/s and
   validates the cache path end to end.  Dense decoders (block kinds
   ``attn`` and ``attn_local``) only: an arch that needs another block
-  kind, an encoder, a frontend or M-RoPE exits non-zero naming ROADMAP
-  Queue 1 item 9.
+  kind, an encoder, a frontend or M-RoPE exits non-zero naming the
+  ROADMAP Queue 1 item that brings it (``Model.unported``).
 
       PYTHONPATH=src python -m repro_torch.launch.serve decode \\
           --arch mistral-nemo-12b --batch 4 --prompt-len 64 --gen 32

@@ -3,8 +3,8 @@ JAX package's ``models/attention.py``, plus single-token decode against a
 KV cache.
 
 :func:`attention` takes one of two routes, chosen by
-:func:`attention_route` from shape, dtype and mask alone (never from the
-device):
+:func:`attention_route` from shape, dtype, mask and autograd state (never
+from the device):
 
 * ``"flash"`` — plain causal self-attention whose shape the hand-written
   kernel takes (:mod:`repro_torch.kernels.flash_attention`): K and V are
@@ -12,8 +12,11 @@ device):
   contiguous ``[B, H, S, hd]``.  On CUDA tensors the kernel is launched or
   the call raises; on CPU tensors the wrapper runs its plain version.
 * ``"chunked"`` — everything else (a window, an offset, ``Sq != Sk``, a
-  head size or length the kernel does not take): fp32 scores and softmax
-  in query chunks of ``chunk`` rows, as the reference computes them.
+  head size or length the kernel does not take, or an input that needs a
+  gradient while autograd records: the kernel has no backward, and
+  neither has the reference's): fp32 scores and softmax in query chunks
+  of ``chunk`` rows, as the reference computes them.  This route is
+  differentiable.
 
 Both compute the same function; ``attention.calls`` counts the calls per
 route (plain integers, never reset by the package).
@@ -39,9 +42,10 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 def attention_route(q: torch.Tensor, k: torch.Tensor, causal: bool,
-                    window: Optional[int], q_offset: int
-                    ) -> Tuple[str, str]:
-    """``("flash" | "chunked", reason)`` for q [B,Sq,H,hd], k [B,Sk,KV,hd]."""
+                    window: Optional[int], q_offset: int,
+                    v: Optional[torch.Tensor] = None) -> Tuple[str, str]:
+    """``("flash" | "chunked", reason)`` for q [B,Sq,H,hd], k/v
+    [B,Sk,KV,hd] under the current autograd state."""
     sq, hd = q.shape[1], q.shape[3]
     sk = k.shape[1]
     if not causal:
@@ -59,6 +63,9 @@ def attention_route(q: torch.Tensor, k: torch.Tensor, causal: bool,
         return "chunked", f"head_dim {hd} not in {flash_lib.HD_CHOICES}"
     if q.dtype not in flash_lib.DTYPES:
         return "chunked", f"dtype {q.dtype} not in {flash_lib.DTYPES}"
+    if flash_lib.needs_grad(q, k, v):
+        return "chunked", ("an input needs a gradient and the kernel has "
+                           "no backward (nor has the reference's)")
     return "flash", "causal self-attention in the kernel's shapes"
 
 
@@ -75,7 +82,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`attention_route` says (to hold one route against the other).
     """
     route = "chunked" if force_chunked else \
-        attention_route(q, k, causal, window, q_offset)[0]
+        attention_route(q, k, causal, window, q_offset, v)[0]
     attention.calls[route] += 1
     n_rep = q.shape[2] // k.shape[2]
     if route == "flash":
@@ -154,7 +161,14 @@ def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
                  k_new: torch.Tensor, v_new: torch.Tensor, cache_len: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write k_new/v_new [B,1,KV,hd] at position cache_len, in place (the
-    reference returns new caches); returns the caches."""
+    reference returns new caches); returns the caches.
+
+    ``cache_len`` outside ``[0, max_len)`` raises ``IndexError``; the
+    reference clamps it and overwrites the last slot instead."""
+    max_len = k_cache.shape[1]
+    if not 0 <= cache_len < max_len:
+        raise IndexError(f"cache position {cache_len} is outside the cache "
+                         f"of max_len={max_len}")
     k_cache[:, cache_len:cache_len + 1] = k_new
     v_cache[:, cache_len:cache_len + 1] = v_new
     return k_cache, v_cache

@@ -1,18 +1,24 @@
-"""Carry the JAX package's model weights into a :class:`Model`.
+"""Carry the JAX package's model weights, gradients and optimizer state
+into the port.
 
-The input is the reference's ``Model.init`` parameter tree with numpy
-leaves (what ``jax.tree.map(np.asarray, params)`` gives): ``embed``,
-``unembed`` (untied configs), ``final_ln`` and one ``g{i}`` per pattern
-entry whose leaves stack the layers ``[n_super, repeat, ...]``.  bf16
-leaves cross as their raw bits (numpy has no bf16 of its own).
+The input is a tree shaped like the reference's ``Model.init`` parameter
+tree, with numpy leaves (what ``jax.tree.map(np.asarray, tree)`` gives):
+``embed``, ``unembed`` (untied configs), ``final_ln`` and one ``g{i}`` per
+pattern entry whose leaves stack the layers ``[n_super, repeat, ...]``.
+The reference's gradients and its ``OptState.mu`` / ``nu`` have that
+shape too.  bf16 leaves cross as their raw bits (numpy has no bf16 of
+its own).  Every function visits the leaves in one order
+(:func:`_named_leaves`): the model's parameters, the blocks in the order
+of the reference's scan.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
 
+from ..optim.optimizer import OptState
 from .model import Model
 
 
@@ -38,21 +44,55 @@ def _leaf(tree: Mapping[str, Any], path: str) -> np.ndarray:
     return tree
 
 
+def _named_leaves(model: Model, tree: Mapping[str, Any]
+                  ) -> Iterator[Tuple[str, torch.Tensor, np.ndarray, str]]:
+    """``(port name, port parameter, tree leaf, tree path)`` for every
+    parameter of ``model``."""
+    cfg = model.cfg
+    for name in ("embed", "unembed", "final_ln"):
+        p = getattr(model, name)
+        if p is not None:
+            yield name, p, tree[name], name
+    blocks = iter(enumerate(model.blocks))
+    for s in range(cfg.n_super):
+        for i, b in enumerate(cfg.pattern):
+            for r in range(b.repeat):
+                n, blk = next(blocks)
+                for name, p in blk.named_parameters():
+                    yield (f"blocks.{n}.{name}", p,
+                           _leaf(tree[f"g{i}"], name)[s, r],
+                           f"g{i}.{name}[{s}, {r}]")
+
+
 @torch.no_grad()
 def load_jax_params(model: Model, tree: Mapping[str, Any]) -> Model:
     """Copy every weight of ``tree`` into ``model`` (shapes and dtypes
     must match) and return ``model``."""
-    cfg = model.cfg
-    _copy(model.embed, tree["embed"], "embed")
-    if model.unembed is not None:
-        _copy(model.unembed, tree["unembed"], "unembed")
-    _copy(model.final_ln, tree["final_ln"], "final_ln")
-    blocks = iter(model.blocks)
-    for s in range(cfg.n_super):
-        for i, b in enumerate(cfg.pattern):
-            for r in range(b.repeat):
-                blk = next(blocks)
-                for name, p in blk.named_parameters():
-                    _copy(p, _leaf(tree[f"g{i}"], name)[s, r],
-                          f"g{i}.{name}[{s}, {r}]")
+    for _, p, arr, path in _named_leaves(model, tree):
+        _copy(p, arr, path)
     return model
+
+
+def named_from_jax(model: Model, tree: Mapping[str, Any]
+                   ) -> Dict[str, torch.Tensor]:
+    """A tree shaped like the reference's parameters (its gradients, say)
+    as ``{port parameter name: tensor}`` on the model's device, each leaf
+    in its own dtype, its shape checked against the parameter's."""
+    out = {}
+    for name, p, arr, path in _named_leaves(model, tree):
+        t = _tensor(arr)
+        if t.shape != p.shape:
+            raise ValueError(f"{path}: the tree holds {tuple(t.shape)}, "
+                             f"the model {tuple(p.shape)}")
+        out[name] = t.to(p.device)
+    return out
+
+
+def opt_state_from_jax(model: Model, state: Any) -> OptState:
+    """The reference's ``OptState`` (``step``, ``mu``, ``nu`` with numpy
+    leaves, the moments stacked per ``g{i}`` as the parameters are) as
+    the port's, on the model's device."""
+    dev = model.embed.device
+    step = torch.from_numpy(np.array(state.step, dtype=np.int32)).to(dev)
+    return OptState(step=step, mu=named_from_jax(model, state.mu),
+                    nu=named_from_jax(model, state.nu))

@@ -5,8 +5,8 @@ Weights keep the reference's ``[d_in, d_out]`` layout, applied as
 ``x @ w``.  Every op computes in the dtype and precision the reference
 does, step for step: RMSNorm reduces in fp32 and rounds twice, RoPE takes
 its angles in fp32, the GELU is the tanh approximation (``jax.nn.gelu``'s
-default).  Not here yet: ``apply_m_rope`` (qwen2-vl) and ``softmax_xent``
-(training).
+default), ``softmax_xent`` reduces in fp32.  Not here yet:
+``apply_m_rope`` (qwen2-vl, ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -80,3 +80,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- loss
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 softcap: float = 0.0) -> torch.Tensor:
+    """Mean cross entropy; logits [.., V] bf16-safe (reductions in fp32),
+    capped by ``tanh(lg / softcap) * softcap`` when ``softcap`` > 0."""
+    lg = logits.float()
+    if softcap > 0.0:
+        lg = torch.tanh(lg / softcap) * softcap
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+    return (lse - gold).mean()

@@ -13,43 +13,86 @@ Public surface::
     logits = m(tokens)                             # prefill forward [B,S,V]
     cache = m.init_cache(batch, max_len)           # per-layer K/V
     logits = m.decode_step(cache, tokens, pos)     # [B,1,V]; cache in place
+    m.requires_grad_(True)                         # make it trainable
+    loss, aux = m.loss_fn(batch)                   # {"tokens", "labels"}
 
-The rest of the LM substrate — MoE, Mamba-2, xLSTM, encoder-decoder and
-shared-attention blocks, M-RoPE and frontends, sharding, training — is
-not ported yet (ROADMAP Queue 1 item 9); :func:`unported` names what a
-config needs of it, and :class:`Model` refuses such a config.
+The weights are built needing no gradient (serving); ``requires_grad_``
+(``nn.Module``'s) turns them into trainable leaves.  While autograd
+records and the weights need a gradient, each block runs under
+``torch.utils.checkpoint`` as ``cfg.remat`` says (the reference remats
+each scanned super-block): ``"full"`` recomputes the whole block in the
+backward pass, ``"dots"`` keeps the outputs of its matrix products
+(``aten.mm`` / ``bmm`` / ``addmm``, the counterpart of
+``checkpoint_dots``) and recomputes the rest, ``"none"`` keeps
+everything.  A recomputed block calls :func:`attention` again, so
+``attention.calls`` counts it twice.
+
+The rest of the LM substrate is not ported yet; :func:`unported` names
+what a config needs of it and the ROADMAP Queue 1 item that brings it,
+and :class:`Model` refuses such a config.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..device import DeviceLike, resolve_device
 from .blocks import AttnBlock, _ones, _param
 from .config import ModelConfig
-from .layers import _init_dense, dtype_of, rms_norm
+from .layers import _init_dense, dtype_of, rms_norm, softmax_xent
 
 KINDS = ("attn", "attn_local")
 
+#: the ROADMAP Queue 1 item that brings each missing block kind
+KIND_ITEMS = {"mlstm": 3, "slstm": 3, "moe": 4, "mamba2": 5,
+              "shared_attn": 5, "attn_cross": 6}
+
 
 def unported(cfg: ModelConfig) -> Optional[str]:
-    """Why :class:`Model` cannot build ``cfg`` yet, or ``None``."""
-    missing = [f"block kind {b.kind!r}" for b in cfg.pattern
+    """Why :class:`Model` cannot build ``cfg`` yet, or ``None``: each
+    missing part with the ROADMAP Queue 1 item that brings it."""
+    missing = [f"block kind {b.kind!r} (ROADMAP Queue 1 item "
+               f"{KIND_ITEMS.get(b.kind, '?')})" for b in cfg.pattern
                if b.kind not in KINDS]
     if cfg.n_enc_layers:
-        missing.append("an encoder (n_enc_layers)")
+        missing.append("an encoder, n_enc_layers (ROADMAP Queue 1 item 6)")
     if cfg.frontend:
-        missing.append(f"the {cfg.frontend} frontend")
+        missing.append(f"the {cfg.frontend} frontend (ROADMAP Queue 1 "
+                       f"item 7)")
     if cfg.m_rope:
-        missing.append("M-RoPE")
+        missing.append("M-RoPE (ROADMAP Queue 1 item 7)")
     if not missing:
         return None
     return (f"{cfg.name} needs {', '.join(dict.fromkeys(missing))}, which "
-            f"repro_torch does not have yet (ROADMAP Queue 1 item 9: the "
-            f"port's LM substrate has the dense decoder blocks "
-            f"{', '.join(KINDS)} only)")
+            f"repro_torch does not have yet: the port's LM substrate has "
+            f"the dense decoder blocks {', '.join(KINDS)} only")
+
+
+#: the products whose outputs ``remat="dots"`` keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS else \
+        ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(policy: str):
+    """``fn(block, *args)`` running a block under the remat ``policy``."""
+    if policy == "none":
+        return lambda blk, *a: blk(*a)
+    kw = dict(use_reentrant=False)
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _keep_dots)
+    elif policy != "full":
+        raise ValueError(f"unknown remat policy {policy!r}")
+    return lambda blk, *a: ckpt.checkpoint(blk, *a, **kw)
 
 
 class Model(nn.Module):
@@ -90,11 +133,27 @@ class Model(nn.Module):
                 force_chunked: bool = False) -> torch.Tensor:
         """tokens: [B,S] integer -> logits [B,S,V].  ``force_chunked`` puts
         every layer's attention on the chunked route (to hold the flash
-        route against it)."""
+        route against it).  Blocks run under ``cfg.remat`` while autograd
+        records and the weights need a gradient."""
         x = self.embed[tokens].to(dtype_of(self.cfg.compute_dtype))
+        training = torch.is_grad_enabled() and any(
+            p.requires_grad for p in self.parameters())
+        run = _remat(self.cfg.remat if training else "none")
         for blk in self.blocks:
-            x = blk(x, 0, force_chunked=force_chunked)
+            x = run(blk, x, 0, force_chunked)
         return self._logits(x)
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``batch``: ``{"tokens": [B,S], "labels": [B,S]}`` -> ``(total,
+        {"xent", "aux"})``, the reference's ``loss_fn``: the mean cross
+        entropy (softcapped by ``cfg.logit_softcap``) plus ``0.01·aux``,
+        where ``aux`` (the MoE balance loss) is 0 for dense blocks."""
+        logits = self(batch["tokens"])
+        loss = softmax_xent(logits, batch["labels"], self.cfg.logit_softcap)
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        total = loss + 0.01 * aux
+        return total, dict(xent=loss, aux=aux)
 
     def init_cache(self, batch: int, max_len: int
                    ) -> List[Dict[str, torch.Tensor]]:

@@ -16,6 +16,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
                                                  flash_plan)
 from repro_torch.kernels.ref import dense_to_bsr
+from repro_torch.models.attention import attention
 
 pytestmark = pytest.mark.gpu
 
@@ -213,3 +214,30 @@ def test_evaluator_cuda_matches_cpu(cuda):
         lg = b["log10_edp"][both]
         assert np.all(np.abs(a["log10_edp"][both] - lg)
                       <= 2e-3 * np.maximum(np.abs(lg), 1))
+
+
+def test_gradients_through_attention_on_cuda_equal_the_chunked_route(cuda):
+    """On the card, a model's attention under autograd keeps its gradient
+    (route chunked, the kernel not launched): the gradients of q, k and v
+    are nonzero and equal the same computation on the CPU.  Tolerance:
+    fp32, ``1e-4`` of each gradient's largest element (cuBLAS and the CPU
+    sum in different orders)."""
+    rng = np.random.default_rng(14)
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in
+               ((1, 256, 8, 128), (1, 256, 2, 128), (1, 256, 2, 128)))
+    w = rng.standard_normal((1, 256, 8, 128)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        ts = [torch.from_numpy(a).to(dev).requires_grad_(True)
+              for a in (q, k, v)]
+        before = flash_attention.launches
+        attention.calls.update(flash=0, chunked=0)
+        out = attention(*ts, causal=True)
+        (out * torch.from_numpy(w).to(dev)).sum().backward()
+        assert attention.calls == {"flash": 0, "chunked": 1}
+        assert flash_attention.launches == before
+        grads[str(dev)] = [t.grad.cpu() for t in ts]
+    for got, want in zip(grads[str(cuda)], grads["cpu"]):
+        assert bool(torch.isfinite(got).all()) and float(got.abs().max()) > 0
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))

@@ -287,6 +287,101 @@ def test_attention_route(case):
         assert hd in flash_mod.HD_CHOICES and sq % flash_mod.S_MULTIPLE == 0
 
 
+# ---------------------------------------------------------------- faults
+
+def _flash_shaped(requires=(), dtype=torch.float32):
+    """q [1,64,2,64], k/v [1,64,1,64] (the flash route's shape), the named
+    ones requiring a gradient."""
+    q, k, v = (_torch(a, "float32").to(dtype) for a in
+               _qkv(1, 64, 64, 2, 1, 64, seed=11))
+    return tuple(t.requires_grad_(name in requires)
+                 for name, t in zip("qkv", (q, k, v)))
+
+
+@pytest.mark.parametrize("requires", ["q", "k", "v", "qkv"])
+def test_attention_route_under_autograd_is_chunked(requires):
+    """An input that needs a gradient while autograd records takes the
+    differentiable chunked route; without autograd the same tensors take
+    the flash route (inference keeps the kernel)."""
+    q, k, v = _flash_shaped(requires)
+    route, why = attn.attention_route(q, k, True, None, 0, v)
+    assert route == "chunked" and "no backward" in why
+    for ctx in (torch.no_grad, torch.inference_mode):
+        with ctx():
+            assert attn.attention_route(q, k, True, None, 0, v)[0] == "flash"
+    q0, k0, v0 = _flash_shaped(())
+    assert attn.attention_route(q0, k0, True, None, 0, v0)[0] == "flash"
+    _reset_routes()
+    out = attn.attention(q, k, v, causal=True)
+    assert attn.attention.calls == {"flash": 0, "chunked": 1}
+    assert out.grad_fn is not None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_wrapper_refuses_an_input_that_needs_grad(dtype):
+    """``kernels.flash_attention`` raises on CPU tensors as on CUDA ones,
+    so a direct call cannot drop a gradient; without autograd it runs."""
+    q, k, v = (t.transpose(1, 2).contiguous().detach()
+               for t in _flash_shaped((), dtype))
+    k, v = k.expand_as(q).contiguous(), v.expand_as(q).contiguous()
+    kw = dict(bq=64, bk=64)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_mod.flash_attention(q.requires_grad_(True), k, v, **kw)
+    with torch.no_grad():
+        out = flash_mod.flash_attention(q, k, v, **kw)
+    assert out.shape == q.shape and out.grad_fn is None
+
+
+def test_gradients_through_attention_equal_the_reference():
+    """Under autograd the port's attention (chunked) gives the reference's
+    gradients for q, k and v (fp32)."""
+    q, k, v = _qkv(1, 64, 64, 2, 1, 64, seed=12)
+    w = np.random.default_rng(13).standard_normal((1, 64, 2, 64)).astype(
+        np.float32)
+
+    def ref_loss(q, k, v):
+        return jnp.sum(ref_attn.attention(q, k, v, causal=True) * w)
+
+    ref = jax.grad(ref_loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (q, k, v))
+    (attn.attention(tq, tk, tv, causal=True) *
+     torch.from_numpy(w)).sum().backward()
+    for got, want in zip((tq.grad, tk.grad, tv.grad), ref):
+        assert_close(got, want, "float32")
+
+
+@pytest.mark.parametrize("pos", [8, 9, -1])
+def test_update_cache_past_the_end_raises_while_the_reference_clamps(pos):
+    """A write at ``cache_len`` outside ``[0, max_len)`` raises
+    ``IndexError`` in the port; the reference overwrites the last slot
+    (past the end it clamps, and -1 counts from the end): a difference
+    kept on purpose."""
+    kc = torch.zeros((1, 8, 1, 4))
+    vc = torch.zeros((1, 8, 1, 4))
+    new = torch.ones((1, 1, 1, 4))
+    with pytest.raises(IndexError, match="max_len=8"):
+        attn.update_cache(kc, vc, new, new, pos)
+    assert not kc.any() and not vc.any()
+    rk, _ = ref_attn.update_cache(jnp.zeros((1, 8, 1, 4)),
+                                  jnp.zeros((1, 8, 1, 4)),
+                                  jnp.ones((1, 1, 1, 4)),
+                                  jnp.ones((1, 1, 1, 4)), jnp.int32(pos))
+    rk = np.asarray(rk)
+    assert rk[0, 7].all() and rk.sum() == 4
+
+
+def test_decode_step_past_the_cache_raises():
+    _, _, _, tm, _, _, _ = model_pair("mistral_f32")
+    cache = tm.init_cache(1, 2)
+    tok = torch.zeros((1, 1), dtype=torch.int64)
+    with torch.inference_mode():
+        tm.decode_step(cache, tok, 1)
+        with pytest.raises(IndexError, match="max_len=2"):
+            tm.decode_step(cache, tok, 2)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window", [None, 8])
 def test_decode_attention_and_update_cache(window, dtype):
