@@ -44,17 +44,29 @@ where there is no CUDA device or the port's package is missing.  It
    (the kernel has no backward), that every layer's ``wq``/``wk``/``wv``
    gets a gradient, that 2 microbatches give 1's loss and gradients, and
    that a 2-layer model's loss falls on a fixed batch;
-8. holds the GPU evaluator against the CPU one on 262,144 genomes per
+8. drives the recurrent families (``repro_torch.models.ssm``, the
+   ``mlstm`` / ``slstm`` / ``mamba2`` blocks, zamba2's shared attention
+   block) at full width in bf16 with random weights from a seed:
+   ``xlstm-350m`` (24 layers) and ``zamba2-2.7b`` (54 layers) each with
+   one prefill forward (4,096 and 32,768 tokens), the ``serve decode``
+   loop (batch 4, prompt 64, 32 generated), a few ``run_train`` steps
+   (xlstm: seq 1,024, batch 4, full depth; zamba2: seq 4,096, batch 1,
+   12 layers), and checks: forward against ``decode_step`` in fp32 over
+   512 positions on the first super-blocks, every gradient leaf finite
+   and nonzero, generated tokens in range, no kernel launched (xlstm has
+   no attention, zamba2's head size 80 is not the flash kernel's); one
+   JSON line per arch;
+9. holds the GPU evaluator against the CPU one on 262,144 genomes per
    workload and measures its rows per second;
-9. holds each kernel against its plain PyTorch version on the card — the
-   reference's test shapes, the edges of each route's tiles (half a query
-   tile, empty, fully dense and all-zero block-rows, every column tile) and
-   the workload shapes; at the LM prefill's attention shape against the
-   model's chunked route — and times kernel, plain version and one library
-   call beside the least time the card could take (``bound_ms``).  Each
-   row names the route that ran (``kernel_route``: ``wgmma``, ``wmma`` or
-   ``fma``, chosen by the wrappers' ``flash_plan`` / ``bsr_plan``);
-   ``graph_ms`` is the kernel's device time without the host's share.
+10. holds each kernel against its plain PyTorch version on the card — the
+    reference's test shapes, the edges of each route's tiles (half a query
+    tile, empty, fully dense and all-zero block-rows, every column tile) and
+    the workload shapes; at the LM prefill's attention shape against the
+    model's chunked route — and times kernel, plain version and one library
+    call beside the least time the card could take (``bound_ms``).  Each
+    row names the route that ran (``kernel_route``: ``wgmma``, ``wmma`` or
+    ``fma``, chosen by the wrappers' ``flash_plan`` / ``bsr_plan``);
+    ``graph_ms`` is the kernel's device time without the host's share.
 
 Every check that fails raises, so the script exits non-zero.  One JSON
 object per phase goes to standard output; the second to last line is the
@@ -1422,6 +1434,355 @@ def train_phase(device):
     return out
 
 
+# --------------------------------------------------------------------- ssm
+
+SSM_ARCHS = ("xlstm-350m", "zamba2-2.7b")
+# prefill: one sequence; xlstm at train_4k's length (its sLSTM loops over
+# the tokens one by one, so prefill_32k's 32,768 would take minutes),
+# zamba2 at prefill_32k's (its batch of 32 belongs to a pod)
+SSM_PREFILL_S = {"xlstm-350m": 4096, "zamba2-2.7b": 32_768}
+# the prefill profiled by family: xlstm's per-token loop makes ~60 device
+# operations a token, so its profile runs one chunk of 256 tokens
+SSM_PROFILE_S = {"xlstm-350m": 256, "zamba2-2.7b": 32_768}
+SSM_DECODE = (4, 64, 32)            # batch, prompt, generated: the CLI's
+# train: (n_super or None for full depth, seq, batch, steps, warm-up
+# steps left out of the step time).  xlstm: seq 1,024 (not train_4k's
+# 4,096: each step runs the sLSTM token by token, forward and backward,
+# 14–23 s a step on an H100), batch 4 (not 256, a pod's), 1 timed step
+# after 1 warm-up (3 timed steps put the phase past its time).  zamba2:
+# 2 of 9 super-blocks (12 layers): at full depth with remat "none" the
+# activations of seq 4,096 do not fit beside the 25 GB of fp32 moments.
+SSM_TRAIN = {"xlstm-350m": (None, 1024, 4, 2, 1),
+             "zamba2-2.7b": (2, 4096, 1, 2, 1)}
+# check (1): forward against decode_step in fp32 over SSM_CHECK_S
+# positions (two chunks of 256: the carry between chunks is crossed) on
+# the model cut to its first super-blocks (xlstm 2 = 4 layers, zamba2 1 =
+# 6 layers, the shared block included), per position within
+# SSM_CHECK_REL_RMS of the logits' rms.  The JAX package shows ~5e-6 on
+# the CPU.  In bf16 the full model's spread over SSM_SPREAD_S positions
+# is recorded, not gated: the reference's own bf16 forward and decode
+# differ by 5.1 % (xlstm) and 5.3 % (zamba2) of the rms at the smoke
+# width, and by 115 % for xlstm at its full depth of 24 layers (d 256 on
+# the CPU; its fp32 ones by 0.42 %).  256 positions, not 512: zamba2's
+# decode steps cost ~47 ms each.
+SSM_CHECK_SUPER = {"xlstm-350m": 2, "zamba2-2.7b": 1}
+SSM_CHECK_S = 512
+SSM_SPREAD_S = 256
+SSM_CHECK_REL_RMS = 1e-3
+# check (2): every parameter's gradient on this many tokens of a batch
+SSM_GRAD_S = 256
+#: record_function labels of the block kinds, for device ms by family
+SSM_LABELS = {"repro.mlstm": "mlstm blocks", "repro.slstm": "slstm blocks",
+              "repro.mamba2": "mamba2 blocks",
+              "repro.attn": "shared attention blocks"}
+
+
+def ssm_forward_flops(cfg, seq):
+    """FLOPs of one forward over ``seq`` tokens of one sequence: the
+    weight products (embedding gather excluded, LM head included) and
+    each block's sequence mixing as the chunked forms compute it (causal
+    attention: its half of S²)."""
+    from repro_torch.models.blocks import _mamba_dims, _mlstm_dims
+    d, v, q = cfg.d_model, cfg.vocab_size, cfg.ssm_chunk
+    per_token = 2.0 * d * v
+    attn = 0.0
+    for b in cfg.pattern:
+        n = b.repeat * cfg.n_super
+        if b.kind == "mlstm":
+            dp, h, hd = _mlstm_dims(cfg)
+            w = d * 2 * dp + 3 * dp * dp + dp * 2 * h + dp * d
+            # SSD a chunk: C·Bᵀ, (·L)·X, the chunk's state, C·h_prev; the
+            # normalizer again with P = 1
+            mix = h * (2 * q * hd + 2 * q * hd + 4 * hd * hd
+                       + 2 * q * hd + 2 * q + 4 * hd)
+            per_token += n * (2.0 * w + mix)
+        elif b.kind == "slstm":
+            hd = d // cfg.n_heads
+            per_token += n * (2.0 * (4 * d * d + d * d)
+                              + 8.0 * cfg.n_heads * hd * hd)
+        elif b.kind == "mamba2":
+            d_in, p, nh, ns, conv_dim = _mamba_dims(cfg)
+            w = d * (2 * d_in + 2 * ns + nh) + d_in * d
+            mix = nh * (2 * q * ns + 2 * q * p + 4 * p * ns) + 8 * conv_dim
+            per_token += n * (2.0 * w + mix)
+        else:           # attn / shared_attn: projections, MLP, attention
+            hq, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+            w = 2 * d * hq * hd + 2 * d * kv * hd + 3 * d * cfg.d_ff
+            per_token += n * 2.0 * w
+            attn += n * 4.0 * hq * hd * seq * (seq + 1) / 2
+    return per_token * seq + attn
+
+
+def _cut(cfg, n_super, **kw):
+    import dataclasses
+    return dataclasses.replace(cfg, n_super=n_super or cfg.n_super, **kw)
+
+
+def _rel_rms_worst(a, b):
+    """Worst per-position ``rms(a - b) / rms(b)`` over the last axis."""
+    err = (a.float() - b.float()).pow(2).mean(-1).sqrt()
+    return float((err / b.float().pow(2).mean(-1).sqrt()).max())
+
+
+def _decode_all(model, toks):
+    """Logits of ``decode_step`` at every position of ``toks`` [B,S]."""
+    import torch
+    from repro_torch.launch.steps import build_serve_step
+    step = build_serve_step(model)
+    with torch.inference_mode():
+        cache = model.init_cache(toks.shape[0], toks.shape[1])
+        return torch.cat([step(cache, toks[:, i:i + 1], i)
+                          for i in range(toks.shape[1])], dim=1)
+
+
+@contextlib.contextmanager
+def _block_labels():
+    """Each block kind's ``forward`` / ``decode`` under its label of
+    ``SSM_LABELS``."""
+    from repro_torch.models import blocks
+    kinds = (("MlstmBlock", "repro.mlstm"), ("SlstmBlock", "repro.slstm"),
+             ("Mamba2Block", "repro.mamba2"), ("AttnBlock", "repro.attn"))
+    with contextlib.ExitStack() as stack:
+        for cls, label in kinds:
+            for attr in ("forward", "decode"):
+                stack.enter_context(_labelled(getattr(blocks, cls), attr,
+                                              label))
+        yield
+
+
+def _ssm_arch(device, arch):
+    """One arch of the ``ssm`` phase: prefill, decode, train and checks
+    (1)–(4), the flash launch count at 0 just before its main path."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.bsr_spmm import bsr_spmm
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.launch.train import run_train
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models.model import Model
+
+    cfg = get_config(arch)
+    out = dict(arch=arch, layers=cfg.n_layers, dtype=cfg.param_dtype)
+    rng = np.random.default_rng(0)
+    flash_attention.launches = 0
+    bsr_spmm.launches = 0
+    attn_lib.attention.calls.update(flash=0, chunked=0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device,
+                  generator=torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    params = list(model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in params)
+    out.update(build_s=time.perf_counter() - t0,
+               param_count=sum(p.numel() for p in params),
+               param_bytes=param_bytes)
+
+    # ---- prefill, one sequence
+    s = SSM_PREFILL_S[arch]
+    prefill = build_prefill_step(model)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, s))
+                              ).to(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = prefill({"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(tuple(logits.shape) == (1, s, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{arch} prefill: logits {tuple(logits.shape)} or not finite")
+    del logits
+    flops = ssm_forward_flops(cfg, s)
+    moved = param_bytes + s * cfg.vocab_size * 2
+    bound_s = max(flops / PEAK_FLOPS["bfloat16"], moved / HBM_BYTES_PER_S)
+    ps = SSM_PROFILE_S[arch]
+    ptoks = tokens[:, :ps]
+    with _block_labels():
+        prof_wall = wall_ms(lambda: prefill({"tokens": ptoks}), reps=1) \
+            if ps != s else wall * 1e3
+        fams, dev_ms, n_ops, top = device_ms_by_family(
+            lambda: prefill({"tokens": ptoks}), SSM_LABELS)
+    out["prefill"] = dict(
+        batch=1, seq=s, wall_s=wall, tokens_per_s=s / wall, flops=flops,
+        bytes=moved, bound_s=bound_s, share_of_bound=bound_s / wall,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(device),
+        profiled_seq=ps, profiled_wall_ms=prof_wall,
+        profiled_device_ms=dev_ms, profiled_device_ops=n_ops,
+        profiled_device_ops_per_token=n_ops / ps,
+        profiled_device_idle_share=1.0 - dev_ms / prof_wall,
+        device_ms_by_family=fams, top_kernels_ms=top)
+    del tokens, ptoks
+
+    # ---- decode: the serve decode loop
+    b, pl_, g = SSM_DECODE
+    prompts = torch.from_numpy(serve.make_prompts(cfg.vocab_size, b, pl_)
+                               ).to(device)
+    res = serve.run_decode(model, prompts, g)
+    gen = res["tokens"]
+    # check (3)
+    check(gen.shape == (b, g) and ((gen >= 0) & (gen < cfg.vocab_size)
+                                   ).all(),
+          f"{arch} decode: generated tokens {gen.shape} out of range")
+    step = build_serve_step(model)
+    with torch.inference_mode():
+        cache = model.init_cache(b, pl_ + g + 1)
+        tok = prompts[:, :1]
+        step(cache, tok, 0)       # the mLSTM state is fp32 from here on
+        with _block_labels():
+            fams_d, step_dev_ms, step_ops, _ = device_ms_by_family(
+                lambda: step(cache, tok, 1), SSM_LABELS)
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for c in cache for t in c.values())
+        del cache
+    step_ms = res["decode_s"] / g * 1e3
+    embed_bytes = model.embed.numel() * model.embed.element_size()
+    # weights (the embedding table only where it is the head), the
+    # caches read and their recurrent states written once a step
+    read = param_bytes - (0 if cfg.tie_embeddings else embed_bytes) \
+        + 2 * cache_bytes
+    bound_ms = read / HBM_BYTES_PER_S * 1e3
+    out["decode"] = dict(
+        batch=b, prompt=pl_, gen=g, prefill_by_steps_s=res["prefill_s"],
+        decode_s=res["decode_s"], ms_per_step=step_ms,
+        tokens_per_s=b * g / res["decode_s"], cache_bytes=cache_bytes,
+        bytes_per_step=read, bound_ms_per_step=bound_ms,
+        share_of_bound=bound_ms / step_ms,
+        device_ops_per_step=step_ops, device_ms_per_step=step_dev_ms,
+        device_idle_share=1.0 - step_dev_ms / step_ms,
+        device_ms_by_family=fams_d, first_generated=gen[:2, :8].tolist())
+
+    # bf16 spread of the full model, forward against decode (recorded)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (1, SSM_SPREAD_S))).to(device)
+    fwd = prefill({"tokens": toks})
+    dec = _decode_all(model, toks)
+    out["bf16_forward_vs_decode"] = dict(
+        positions=SSM_SPREAD_S, worst_rel_rms=_rel_rms_worst(dec, fwd))
+    del fwd, dec, model, prefill, step, params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- train through run_train, then check (2) on its model
+    n_super, seq, tb, n_steps, warm = SSM_TRAIN[arch]
+    tcfg = _cut(cfg, n_super)
+    lines = []
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = run_train(tcfg, steps=n_steps, batch=tb, seq=seq, device=device,
+                    log_every=1, log=lines.append)
+    torch.cuda.synchronize()
+    losses = res["losses"]
+    check(len(losses) == n_steps and all(map(math.isfinite, losses)),
+          f"{arch} train: losses {losses}")
+    model = res["model"]
+    n_params = sum(p.numel() for p in model.parameters())
+    step_s = res["step_s"][warm:]
+    mean_s = sum(step_s) / len(step_s)
+    tflops = 3.0 * ssm_forward_flops(tcfg, seq) * tb
+    t_bound_s = tflops / PEAK_FLOPS["bfloat16"] + \
+        OPT_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S
+    batch = {k: torch.from_numpy(v[:1, :SSM_GRAD_S]).to(device)
+             for k, v in res["data"].batch_at(n_steps).items()}
+    _, grads = steps_lib.loss_and_grads(model, batch)
+    bad = [n for n, gr in grads.items()
+           if not (bool(torch.isfinite(gr).all()) and
+                   float(gr.abs().max()) > 0)]
+    # check (2)
+    check(not bad and len(grads) == len(list(model.parameters())),
+          f"{arch} train: no nonzero finite gradient for {bad}")
+    out["train"] = dict(
+        layers=tcfg.n_layers, seq=seq, batch=tb, steps=n_steps,
+        warmup_steps=warm, remat=tcfg.remat, param_count=n_params,
+        wall_s=time.perf_counter() - t0, losses=losses, lines=lines,
+        step_s=res["step_s"], ms_per_step=mean_s * 1e3,
+        tokens_per_s=tb * seq / mean_s, model_flops=tflops,
+        bound_ms=t_bound_s * 1e3, share_of_bound=t_bound_s / mean_s,
+        bound_convention="3 x forward FLOPs at 989 TFLOP/s, plus the "
+        "optimizer's 22 bytes a parameter at 3.35 TB/s",
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(device),
+        check_grads=dict(leaves=len(grads), tokens=SSM_GRAD_S, ok=True))
+    del grads, res, model, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # check (4): no kernel on this arch's path (prefill, decode, train)
+    launches = dict(flash_attention=flash_attention.launches,
+                    bsr_spmm=bsr_spmm.launches,
+                    route_flash=attn_lib.attention.calls["flash"],
+                    route_chunked=attn_lib.attention.calls["chunked"])
+    check(launches["flash_attention"] == launches["route_flash"] ==
+          launches["bsr_spmm"] == 0,
+          f"{arch}: {launches}; no kernel is on this path")
+    out["launches"] = launches
+    if any(b.kind == "shared_attn" for b in cfg.pattern):
+        q = torch.empty((1, s, cfg.n_heads, cfg.hd), dtype=torch.bfloat16,
+                        device="meta")
+        k = torch.empty((1, s, cfg.n_kv_heads, cfg.hd),
+                        dtype=torch.bfloat16, device="meta")
+        out["flash_route"] = attn_lib.attention_route(q, k, True, None, 0)
+    else:
+        out["flash_route"] = ("none", "no attention block")
+
+    # check (1): forward against decode_step in fp32, first super-blocks
+    ccfg = _cut(cfg, SSM_CHECK_SUPER[arch], param_dtype="float32",
+                compute_dtype="float32")
+    cmodel = Model(ccfg, device=device,
+                   generator=torch.Generator(device=device).manual_seed(1))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (1, SSM_CHECK_S))).to(device)
+    fwd = build_prefill_step(cmodel)({"tokens": toks})
+    dec = _decode_all(cmodel, toks)
+    worst = _rel_rms_worst(dec, fwd)
+    check(math.isfinite(worst) and worst <= SSM_CHECK_REL_RMS,
+          f"{arch} fp32 decode_step vs forward: per-position error rms "
+          f"{worst:.3g} of the logits' rms (limit {SSM_CHECK_REL_RMS})")
+    out["check_decode_fp32"] = dict(
+        layers=ccfg.n_layers, seq=SSM_CHECK_S, worst_rel_rms=worst,
+        rel_rms_limit=SSM_CHECK_REL_RMS)
+    del cmodel, fwd, dec
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_phase(device):
+    """The recurrent families on the card at full width, bf16, random
+    weights from seed 0: ``xlstm-350m`` (mLSTM + sLSTM, 24 layers) and
+    ``zamba2-2.7b`` (Mamba-2 + a shared attention block, 54 layers), each
+    with one prefill forward, the ``serve decode`` loop, a few
+    ``run_train`` steps and checks (1) forward vs ``decode_step`` in fp32,
+    (2) every gradient leaf finite and nonzero, (3) generated tokens in
+    range, (4) no kernel launched (xlstm has no attention; zamba2's hd 80
+    is outside the flash kernel's).  Emits one JSON line per arch and
+    returns the headline numbers of each (``archs``) and each arch's whole
+    record (``runs``, already printed)."""
+    out = dict(archs={}, runs={})
+    for arch in SSM_ARCHS:
+        t0 = time.perf_counter()
+        r = _ssm_arch(device, arch)
+        r["seconds"] = time.perf_counter() - t0
+        r["card"] = card_line()
+        emit(dict(phase="ssm", **r))
+        out["runs"][arch] = r
+        out["archs"][arch] = dict(
+            prefill_tokens_per_s=r["prefill"]["tokens_per_s"],
+            prefill_bound_s=r["prefill"]["bound_s"],
+            decode_ms_per_step=r["decode"]["ms_per_step"],
+            decode_bound_ms=r["decode"]["bound_ms_per_step"],
+            train_ms_per_step=r["train"]["ms_per_step"],
+            train_bound_ms=r["train"]["bound_ms"],
+            check_decode_fp32=r["check_decode_fp32"]["worst_rel_rms"],
+            launches=r["launches"], seconds=r["seconds"])
+    out["card"] = card_line()
+    return out
+
+
 # --------------------------------------------------------------- main path
 
 
@@ -1983,8 +2344,9 @@ def kernel_table(bsr_cases, flash_cases, lm_case, launches):
     """One entry per kernel; the headline numbers are those of its
     largest kernel-path shape, every shape is under ``cases``.
     ``launches`` sums the main paths' counts, ``launches_by_path`` holds
-    each (``lm_prefill``: one forward of the LM; ``tables`` and ``train``:
-    those phases, which reach no kernel)."""
+    each (``lm_prefill``: one forward of the LM; ``tables``, ``train``,
+    ``xlstm`` and ``zamba2``: those phases and paths, which reach no
+    kernel)."""
     def entry(name, source, replaces, cases, head):
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -2064,7 +2426,7 @@ def main(argv=None) -> int:
 
     for name, phase in (("fleet", fleet_phase), ("tables", tables_phase),
                         ("serve", serve_phase), ("lm", lm_phase),
-                        ("train", train_phase),
+                        ("train", train_phase), ("ssm", ssm_phase),
                         ("evaluator", evaluator_phase)):
         t0 = time.perf_counter()
         bsr_spmm.launches = 0
@@ -2074,10 +2436,13 @@ def main(argv=None) -> int:
             bsr_spmm=bsr_spmm.launches,
             flash_attention=flash_attention.launches)
         report[name]["seconds"] = time.perf_counter() - t0
-        emit(report[name])
-    # neither the tables nor training reaches a kernel (nor do they in
-    # the reference): training runs the chunked route under autograd
-    for name in ("tables", "train"):
+        # a phase's ``runs`` are lines it printed itself
+        emit({k: v for k, v in report[name].items() if k != "runs"})
+    # neither the tables, training nor the recurrent families reach a
+    # kernel (nor do they in the reference): training runs the chunked
+    # route under autograd, xlstm has no attention and zamba2's head
+    # size is not the flash kernel's
+    for name in ("tables", "train", "ssm"):
         check(report[name]["kernel_launches"] == dict(bsr_spmm=0,
                                                       flash_attention=0),
               f"{name}: kernel launches {report[name]['kernel_launches']}")
@@ -2088,15 +2453,20 @@ def main(argv=None) -> int:
                   flash_attention=flash_checks(device, flash_cases, lm_case))
     kernel_timings(device, bsr_cases, flash_cases, lm_case)
     torch.cuda.synchronize()
+    ssm_runs = report["ssm"]["archs"]
     by_path = dict(
         bsr_spmm=dict(kernel_path=launches["bsr_spmm"],
                       tables=report["tables"]["kernel_launches"]["bsr_spmm"],
-                      train=report["train"]["kernel_launches"]["bsr_spmm"]),
+                      train=report["train"]["kernel_launches"]["bsr_spmm"],
+                      **{a.split("-")[0]: r["launches"]["bsr_spmm"]
+                         for a, r in ssm_runs.items()}),
         flash_attention=dict(
             kernel_path=launches["flash_attention"],
             lm_prefill=report["lm"]["prefill"]["launches"]["flash_kernel"],
             tables=report["tables"]["kernel_launches"]["flash_attention"],
-            train=report["train"]["launches"]["flash_kernel"]))
+            train=report["train"]["launches"]["flash_kernel"],
+            **{a.split("-")[0]: r["launches"]["flash_attention"]
+               for a, r in ssm_runs.items()}))
     table = kernel_table(bsr_cases, flash_cases, lm_case, by_path)
     report["kernels"] = dict(
         phase="kernels", checks_passed={k: len(v) for k, v in checks.items()},

@@ -1,11 +1,13 @@
-"""Quickstart on the PyTorch port: run SparseMap's joint mapping x
-sparse-strategy search on one paper workload and print the winning
-accelerator design, with the batched cost evaluator on the GPU.
+"""Quickstart on the PyTorch port, the twin of ``examples/quickstart.py``:
+1. run SparseMap's joint mapping x sparse-strategy search on one paper
+   workload and print the winning accelerator design, with the batched
+   cost evaluator on the GPU;
+2. train a small LM (the smoke config of ``xlstm-350m``) for 30 steps.
 
     PYTHONPATH=src python examples/quickstart_torch.py
     PYTHONPATH=src python examples/quickstart_torch.py --device cpu
 
-Without ``--device`` the search runs on the GPU and fails where there is
+Without ``--device`` both steps run on the GPU and fail where there is
 none.
 """
 import argparse
@@ -54,6 +56,14 @@ def main(argv=None):
           f"valid={rep.valid}, log10 EDP {math.log10(rep.edp):.4f} vs "
           f"search {math.log10(res.best_edp):.4f}")
 
+    # ---------------- 2. train a small LM ----------------
+    from repro_torch.launch import train
+    print("\ntraining xlstm-350m (smoke config) for 30 steps...")
+    dev = [] if args.device is None else ["--device", args.device]
+    return train.main(["--arch", "xlstm-350m", "--smoke", "--steps", "30",
+                       "--batch", "4", "--seq", "64", "--log-every", "10"]
+                      + dev)
+
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

@@ -3,14 +3,17 @@
 Two modes, dispatched on the first argument:
 
 * ``decode`` — the batched LLM serving driver: prefill + greedy decode
-  loop with KV cache over synthetic prompts; reports tokens/s and
-  validates the cache path end to end.  Dense decoders (block kinds
-  ``attn`` and ``attn_local``) only: an arch that needs another block
-  kind, an encoder, a frontend or M-RoPE exits non-zero naming the
-  ROADMAP Queue 1 item that brings it (``Model.unported``).
+  loop with KV cache (or recurrent state) over synthetic prompts;
+  reports tokens/s and validates the cache path end to end.  The block
+  kinds of ``models.model.KINDS`` (the dense decoders, xLSTM, zamba2's Mamba-2
+  with its shared attention): an arch that needs another block kind,
+  an encoder, a frontend or M-RoPE exits non-zero naming the ROADMAP
+  Queue 1 item that brings it (``Model.unported``).
 
       PYTHONPATH=src python -m repro_torch.launch.serve decode \\
           --arch mistral-nemo-12b --batch 4 --prompt-len 64 --gen 32
+      PYTHONPATH=src python -m repro_torch.launch.serve decode \\
+          --arch zamba2-2.7b
       PYTHONPATH=src python -m repro_torch.launch.serve decode \\
           --arch gemma3-12b --smoke --device cpu
 
@@ -44,7 +47,7 @@ usage: python -m repro_torch.launch.serve <mode> [mode options]
 modes:
   decode   batched LLM serving driver (prefill + greedy decode loop);
            options: --arch --smoke --batch --prompt-len --gen --device;
-           dense decoders (attn / attn_local blocks) only
+           no MoE, encoder-decoder or multimodal arch yet
   sweep    persistent accelerator-search sweep server (query coalescing,
            checkpointed populations, crash recovery); options: --host
            --port --checkpoint-dir --checkpoint-every --max-restarts

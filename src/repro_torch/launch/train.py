@@ -10,11 +10,11 @@ Composes the deterministic, seekable synthetic data pipeline, the model
 checkpoint/restart through the crash-safe ``Supervisor``, and the
 step-time straggler monitor.  The flags and printed lines are the
 reference's, plus ``--device`` (default: the GPU, failing where there is
-none).  Refused, with exit code 2 and the reason on stderr, before
-anything is built: an arch whose blocks are not ported (the default
-``xlstm-350m`` needs ``mlstm`` / ``slstm``, ROADMAP Queue 1 item 3), a
-``--mesh`` other than ``1`` or ``1x1`` (sharding, item 8), and a missing
-device.
+none); the default arch is the reference's, ``xlstm-350m``.  Refused,
+with exit code 2 and the reason on stderr, before anything is built: an
+arch whose blocks are not ported (``moe``, ROADMAP Queue 1 item 4, say),
+a ``--mesh`` other than ``1`` or ``1x1`` (sharding, item 8), and a
+missing device.
 
 :func:`run_train` is the loop itself, for a caller that holds a
 :class:`~repro_torch.models.config.ModelConfig` (a depth-reduced one, say).

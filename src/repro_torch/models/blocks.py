@@ -1,21 +1,31 @@
-"""The attention block (``attn`` / ``attn_local``), the counterpart of the
-JAX package's ``build_attn`` / ``train_attn`` / ``cache_init_attn`` /
-``decode_attn`` (``models/blocks.py``), without cross-attention.
+"""The block kinds of the LM substrate, the counterparts of the JAX
+package's ``build_*`` / ``train_*`` / ``cache_init_*`` / ``decode_*``
+(``models/blocks.py``): the attention block (``attn`` / ``attn_local``,
+without cross-attention), Mamba-2 (``mamba2``) and the xLSTM's ``mlstm``
+and ``slstm``.
 
-Weights keep the reference's ``[d_in, d_out]`` layout and are applied as
-``x @ w`` (no ``nn.Linear``), so a JAX parameter tree copies over leaf for
-leaf (:mod:`repro_torch.models.convert`).  They are built on the
-generator's device in the parameter dtype and need no gradient
-(serving only).
+Each block is an ``nn.Module`` with ``forward(x, off, force_chunked)``,
+``init_cache(batch, max_len)`` and ``decode(cache, x_t, pos)``; ``decode``
+updates ``cache`` (a dict) in place or replaces its entries, as the
+reference's returned cache would have them.  Weights keep the reference's
+``[d_in, d_out]`` layout and are applied as ``x @ w`` (no ``nn.Linear``),
+so a JAX parameter tree copies over leaf for leaf
+(:mod:`repro_torch.models.convert`).  They are built on the generator's
+device in the parameter dtype (Mamba-2's ``a_log``, ``d_skip`` and
+``dt_bias`` in fp32, as the reference's) and need no gradient until the
+model is made trainable.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from . import attention as attn_lib
+from . import ssm as ssm_lib
 from .config import ModelConfig
 from .layers import _init_dense, apply_rope, dtype_of, mlp, rms_norm
 
@@ -27,6 +37,14 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 def _ones(cfg: ModelConfig, gen: torch.Generator) -> nn.Parameter:
     return _param(torch.ones((cfg.d_model,), dtype=dtype_of(cfg.param_dtype),
                              device=gen.device))
+
+
+def _randn(gen: torch.Generator, shape, std: float,
+           dtype: torch.dtype) -> nn.Parameter:
+    """``normal * std`` drawn in fp32 on ``gen``'s device, cast."""
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return _param(w.mul_(std).to(dtype))
 
 
 class _AttnParams(nn.Module):
@@ -121,3 +139,238 @@ class AttnBlock(nn.Module):
         o = attn_lib.decode_attention(q, kc, vc, pos + 1, window=self.window)
         x_t = x_t + o.reshape(b, 1, -1) @ self.attn.wo
         return x_t + mlp(rms_norm(x_t, self.ln2), self.mlp)
+
+
+# =========================================================== mamba2 block
+
+
+def _mamba_dims(cfg: ModelConfig):
+    d_in = 2 * cfg.d_model
+    headdim = 64
+    nh = d_in // headdim
+    n = cfg.ssm_state
+    conv_dim = d_in + 2 * n
+    return d_in, headdim, nh, n, conv_dim
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, state=None):
+    """Depthwise causal conv, width 4.  x: [B,S,C], w: [4,C].
+    state: [B,3,C] previous tokens (decode) or None (zero pad).  Returns
+    the output and the last 3 inputs (the next state)."""
+    if state is None:
+        pad = torch.zeros((x.shape[0], 3, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    s = x.shape[1]
+    out = xp[:, 0:s] * w[0]
+    for i in range(1, 4):
+        out = out + xp[:, i:i + s] * w[i]
+    return out, xp[:, -3:]
+
+
+class Mamba2Block(nn.Module):
+    """Mamba-2: pre-RMSNorm, ``in_proj`` to (z, xBC, dt), a width-4
+    causal conv and SiLU on xBC, SSD over ``nh`` heads of 64 with one
+    B/C group, the ``d_skip`` term, a SiLU(z) gate and ``out_proj``, with
+    a residual.  ``ln [d]``, ``in_proj [d, 2·d_in + 2·N + nh]``, ``conv_w
+    [4, d_in + 2·N]``, ``out_proj [d_in, d]``; ``a_log``, ``d_skip``,
+    ``dt_bias [nh]`` fp32."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        d_in, _, nh, n, conv_dim = _mamba_dims(cfg)
+        dt = dtype_of(cfg.param_dtype)
+        gen = generator
+        f32 = dict(dtype=torch.float32, device=gen.device)
+        self.ln = _ones(cfg, gen)
+        self.in_proj = _param(_init_dense(gen, d, 2 * d_in + 2 * n + nh, dt))
+        self.conv_w = _randn(gen, (4, conv_dim), 0.2, dt)
+        self.a_log = _param(torch.zeros((nh,), **f32))
+        self.d_skip = _param(torch.ones((nh,), **f32))
+        self.dt_bias = _param(torch.zeros((nh,), **f32))
+        self.out_proj = _param(_init_dense(gen, d_in, d, dt))
+
+    def _project(self, x):
+        d_in, _, _, _, conv_dim = _mamba_dims(self.cfg)
+        zxbcdt = rms_norm(x, self.ln) @ self.in_proj
+        return (zxbcdt[..., :d_in], zxbcdt[..., d_in:d_in + conv_dim],
+                zxbcdt[..., d_in + conv_dim:])
+
+    def forward(self, x: torch.Tensor, off: int = 0,
+                force_chunked: bool = False) -> torch.Tensor:
+        """x: [B,S,d] with S a multiple of ``cfg.ssm_chunk``."""
+        b, s, _ = x.shape
+        d_in, hdim, nh, n, _ = _mamba_dims(self.cfg)
+        z, xbc, dt_raw = self._project(x)
+        xbc = F.silu(_causal_conv(xbc, self.conv_w)[0])
+        xs = xbc[..., :d_in].reshape(b, s, nh, hdim)
+        bmat = xbc[..., d_in:d_in + n]
+        cmat = xbc[..., d_in + n:]
+        dt = F.softplus(dt_raw.float() + self.dt_bias)
+        a = -torch.exp(self.a_log) * dt                   # [B,S,H]
+        y, _ = ssm_lib.ssd_chunked(xs * dt[..., None].to(xs.dtype), a,
+                                   bmat, cmat, self.cfg.ssm_chunk)
+        y = y.to(xs.dtype) + xs * self.d_skip[:, None].to(xs.dtype)
+        y = y.reshape(b, s, d_in) * F.silu(z)
+        return x + (y @ self.out_proj).to(x.dtype)
+
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
+        """The conv's last 3 inputs [B,3,C] and the SSD state [B,nh,64,N],
+        zero, in the compute dtype."""
+        _, hdim, nh, n, conv_dim = _mamba_dims(self.cfg)
+        kw = dict(dtype=dtype_of(self.cfg.compute_dtype),
+                  device=self.ln.device)
+        return dict(conv=torch.zeros((batch, 3, conv_dim), **kw),
+                    ssm=torch.zeros((batch, nh, hdim, n), **kw))
+
+    def decode(self, cache: Dict[str, torch.Tensor], x_t: torch.Tensor,
+               pos: int) -> torch.Tensor:
+        """x_t: [B,1,d]; the state advances in fp32 and is stored back in
+        the cache's dtype, as in the reference."""
+        b = x_t.shape[0]
+        d_in, hdim, nh, n, _ = _mamba_dims(self.cfg)
+        z, xbc, dt_raw = self._project(x_t)
+        xbc, conv_state = _causal_conv(xbc, self.conv_w, cache["conv"])
+        xbc = F.silu(xbc)
+        xs = xbc[:, 0, :d_in].reshape(b, nh, hdim)
+        bmat = xbc[:, 0, d_in:d_in + n]
+        cmat = xbc[:, 0, d_in + n:]
+        dt = F.softplus(dt_raw[:, 0].float() + self.dt_bias)
+        a = -torch.exp(self.a_log) * dt                   # [B,H]
+        y, ssm = ssm_lib.ssd_decode_step(
+            cache["ssm"].float(), (xs * dt[..., None].to(xs.dtype)).float(),
+            a, bmat.float(), cmat.float())
+        y = y.to(xs.dtype) + xs * self.d_skip[:, None].to(xs.dtype)
+        y = y.reshape(b, 1, d_in) * F.silu(z)
+        cache["conv"] = conv_state.to(cache["conv"].dtype)
+        cache["ssm"] = ssm.to(cache["ssm"].dtype)
+        return x_t + y @ self.out_proj
+
+
+# =========================================================== mlstm block
+
+
+def _mlstm_dims(cfg: ModelConfig):
+    dp = int(cfg.d_model * cfg.mlstm_proj_factor)
+    h = cfg.n_heads
+    return dp, h, dp // h
+
+
+class MlstmBlock(nn.Module):
+    """xLSTM matrix-LSTM block: pre-RMSNorm, ``up`` to (x, z) of width
+    dp = ``mlstm_proj_factor``·d, q/k/v and the i/f gates from x, the
+    chunkwise mLSTM (:func:`ssm.mlstm_chunked`), a SiLU(z) gate and
+    ``down``, with a residual.  ``ln [d]``, ``up [d, 2·dp]``, ``wq`` /
+    ``wk`` / ``wv [dp, dp]``, ``wif [dp, 2·H]``, ``down [dp, d]``."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        dp, h, _ = _mlstm_dims(cfg)
+        dt = dtype_of(cfg.param_dtype)
+        gen = generator
+        self.ln = _ones(cfg, gen)
+        self.up = _param(_init_dense(gen, d, 2 * dp, dt))
+        self.wq = _param(_init_dense(gen, dp, dp, dt))
+        self.wk = _param(_init_dense(gen, dp, dp, dt))
+        self.wv = _param(_init_dense(gen, dp, dp, dt))
+        self.wif = _param(_init_dense(gen, dp, 2 * h, dt))
+        self.down = _param(_init_dense(gen, dp, d, dt))
+
+    def _qkv_gates(self, x, shape):
+        dp, h, _ = _mlstm_dims(self.cfg)
+        up = rms_norm(x, self.ln) @ self.up
+        xm, z = up[..., :dp], up[..., dp:]
+        q = (xm @ self.wq).reshape(shape)
+        k = (xm @ self.wk).reshape(shape)
+        v = (xm @ self.wv).reshape(shape)
+        gates = xm @ self.wif
+        return q, k, v, gates[..., :h], gates[..., h:], z
+
+    def forward(self, x: torch.Tensor, off: int = 0,
+                force_chunked: bool = False) -> torch.Tensor:
+        """x: [B,S,d] with S a multiple of ``cfg.ssm_chunk``."""
+        b, s, _ = x.shape
+        dp, h, hd = _mlstm_dims(self.cfg)
+        q, k, v, ig, fg, z = self._qkv_gates(x, (b, s, h, hd))
+        y, _ = ssm_lib.mlstm_chunked(q, k, v, ig, fg, self.cfg.ssm_chunk)
+        y = y.to(x.dtype).reshape(b, s, dp) * F.silu(z)
+        return x + y @ self.down
+
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
+        """``c [B·H,1,hd,hd]`` and ``n [B·H,1,1,hd]``, zero, in the compute
+        dtype; :meth:`decode` replaces them with fp32 tensors."""
+        dp, h, hd = _mlstm_dims(self.cfg)
+        c, n = ssm_lib.mlstm_init_state(
+            batch, h, hd, dtype_of(self.cfg.compute_dtype), self.ln.device)
+        return dict(c=c, n=n)
+
+    def decode(self, cache: Dict[str, torch.Tensor], x_t: torch.Tensor,
+               pos: int) -> torch.Tensor:
+        """x_t: [B,1,d].  The state comes back in fp32 from the first step
+        on (the reference's ``mlstm_decode_step`` promotes it), so the
+        cache's ``c`` / ``n`` are replaced, not written into."""
+        b = x_t.shape[0]
+        dp, h, hd = _mlstm_dims(self.cfg)
+        q, k, v, ig, fg, z = self._qkv_gates(x_t[:, 0], (b, h, hd))
+        y, (c2, n2) = ssm_lib.mlstm_decode_step((cache["c"], cache["n"]),
+                                                q, k, v, ig, fg)
+        cache["c"], cache["n"] = c2, n2
+        y = y.to(x_t.dtype).reshape(b, 1, dp) * F.silu(z[:, None])
+        return x_t + y @ self.down
+
+
+# =========================================================== slstm block
+
+
+class SlstmBlock(nn.Module):
+    """xLSTM scalar-LSTM block: pre-RMSNorm, ``wx`` to the z/i/f/o
+    pre-activations, the per-token sLSTM loop with block-diagonal
+    recurrent weights ``r`` (:func:`ssm.slstm_scan`), ``out``, with a
+    residual.  ``ln [d]``, ``wx [d, 4·d]``, ``r [4, H, hd, hd]`` (std
+    0.3/√hd), ``out [d, d]``."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        d, h = cfg.d_model, cfg.n_heads
+        hd = d // h
+        dt = dtype_of(cfg.param_dtype)
+        gen = generator
+        self.ln = _ones(cfg, gen)
+        self.wx = _param(_init_dense(gen, d, 4 * d, dt))
+        self.r = _randn(gen, (4, h, hd, hd), 0.3 / math.sqrt(hd), dt)
+        self.out = _param(_init_dense(gen, d, d, dt))
+
+    def _parts(self, x):
+        b, s, d = x.shape
+        h = self.cfg.n_heads
+        return (rms_norm(x, self.ln) @ self.wx).reshape(b, s, 4, h, d // h)
+
+    def forward(self, x: torch.Tensor, off: int = 0,
+                force_chunked: bool = False) -> torch.Tensor:
+        b, s, d = x.shape
+        ys, _ = ssm_lib.slstm_scan(self._parts(x), self.r)
+        return x + ys.to(x.dtype).reshape(b, s, d) @ self.out
+
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
+        """The fp32 state ``c``, ``n``, ``h``, ``m`` [B,H,hd] at its start
+        (n = 1e-6, m = -10)."""
+        h = self.cfg.n_heads
+        z = torch.zeros((batch, h, self.cfg.d_model // h),
+                        dtype=torch.float32, device=self.ln.device)
+        return dict(c=z, n=z + 1e-6, h=z, m=z - 10.0)
+
+    def decode(self, cache: Dict[str, torch.Tensor], x_t: torch.Tensor,
+               pos: int) -> torch.Tensor:
+        b, _, d = x_t.shape
+        state = (cache["c"], cache["n"], cache["h"], cache["m"])
+        ys, (c, n, hh, m) = ssm_lib.slstm_scan(self._parts(x_t), self.r,
+                                               state)
+        cache.update(c=c, n=n, h=hh, m=m)
+        return x_t + ys.to(x_t.dtype).reshape(b, 1, d) @ self.out

@@ -4,12 +4,14 @@ into the port.
 The input is a tree shaped like the reference's ``Model.init`` parameter
 tree, with numpy leaves (what ``jax.tree.map(np.asarray, tree)`` gives):
 ``embed``, ``unembed`` (untied configs), ``final_ln`` and one ``g{i}`` per
-pattern entry whose leaves stack the layers ``[n_super, repeat, ...]``.
+pattern entry whose leaves stack the layers ``[n_super, repeat, ...]``,
+except for a shared entry (``SHARED_KINDS``), whose ``g{i}`` holds its
+one copy unstacked.
 The reference's gradients and its ``OptState.mu`` / ``nu`` have that
 shape too.  bf16 leaves cross as their raw bits (numpy has no bf16 of
 its own).  Every function visits the leaves in one order
 (:func:`_named_leaves`): the model's parameters, the blocks in the order
-of the reference's scan.
+of the reference's scan, a shared block at its first position only.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from ..optim.optimizer import OptState
-from .model import Model
+from .model import SHARED_KINDS, Model
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
@@ -47,7 +49,8 @@ def _leaf(tree: Mapping[str, Any], path: str) -> np.ndarray:
 def _named_leaves(model: Model, tree: Mapping[str, Any]
                   ) -> Iterator[Tuple[str, torch.Tensor, np.ndarray, str]]:
     """``(port name, port parameter, tree leaf, tree path)`` for every
-    parameter of ``model``."""
+    parameter of ``model``, once each (the names of
+    ``model.named_parameters()``)."""
     cfg = model.cfg
     for name in ("embed", "unembed", "final_ln"):
         p = getattr(model, name)
@@ -58,10 +61,14 @@ def _named_leaves(model: Model, tree: Mapping[str, Any]
         for i, b in enumerate(cfg.pattern):
             for r in range(b.repeat):
                 n, blk = next(blocks)
+                shared = b.kind in SHARED_KINDS
+                if shared and (s, r) != (0, 0):
+                    continue                # yielded at its first use
                 for name, p in blk.named_parameters():
-                    yield (f"blocks.{n}.{name}", p,
-                           _leaf(tree[f"g{i}"], name)[s, r],
-                           f"g{i}.{name}[{s}, {r}]")
+                    leaf, path = _leaf(tree[f"g{i}"], name), f"g{i}.{name}"
+                    if not shared:
+                        leaf, path = leaf[s, r], f"{path}[{s}, {r}]"
+                    yield f"blocks.{n}.{name}", p, leaf, path
 
 
 @torch.no_grad()

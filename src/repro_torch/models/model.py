@@ -1,18 +1,24 @@
-"""Model assembly: embeddings + the decoder blocks + LM head, the
-counterpart of the JAX package's ``models/model.py`` for dense decoders
-(block kinds ``attn`` and ``attn_local``).
+"""Model assembly: embeddings + the blocks + LM head, the counterpart of
+the JAX package's ``models/model.py`` for decoders of the block kinds
+``attn``, ``attn_local``, ``mamba2``, ``mlstm``, ``slstm`` and the
+shared attention block ``shared_attn``.
 
 The reference stacks each pattern entry's weights ``[n_super, repeat,
 ...]`` and scans one super-block body; here the blocks are one
 ``nn.ModuleList`` in the order that scan visits them (super-block by
-super-block, each pattern entry's ``repeat`` layers in turn).
+super-block, each pattern entry's ``repeat`` layers in turn).  A shared
+entry (zamba2's ``shared_attn``, ``SHARED_KINDS``) is one ``AttnBlock``
+referenced from every position it takes in that list: one copy of its
+weights, which ``named_parameters()`` lists once, under its first
+position's name, and whose gradient sums over its uses; its caches stay
+per position.
 
 Public surface::
 
     m = Model(cfg, device=None, generator=None)   # weights built on device
     logits = m(tokens)                             # prefill forward [B,S,V]
-    cache = m.init_cache(batch, max_len)           # per-layer K/V
-    logits = m.decode_step(cache, tokens, pos)     # [B,1,V]; cache in place
+    cache = m.init_cache(batch, max_len)           # one cache per position
+    logits = m.decode_step(cache, tokens, pos)     # [B,1,V]; cache updated
     m.requires_grad_(True)                         # make it trainable
     loss, aux = m.loss_fn(batch)                   # {"tokens", "labels"}
 
@@ -41,15 +47,29 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ..device import DeviceLike, resolve_device
-from .blocks import AttnBlock, _ones, _param
-from .config import ModelConfig
+from .blocks import (AttnBlock, Mamba2Block, MlstmBlock, SlstmBlock, _ones,
+                     _param)
+from .config import BlockSpec, ModelConfig
 from .layers import _init_dense, dtype_of, rms_norm, softmax_xent
 
-KINDS = ("attn", "attn_local")
+#: the block class of each ported kind (``shared_attn``: see SHARED_KINDS)
+BLOCKS = {
+    "attn": AttnBlock,
+    "attn_local": lambda cfg, generator: AttnBlock(cfg, local=True,
+                                                   generator=generator),
+    "mamba2": Mamba2Block,
+    "mlstm": MlstmBlock,
+    "slstm": SlstmBlock,
+}
+SHARED_KINDS = {"shared_attn"}      # zamba2: one weight copy, many uses
+KINDS = tuple(BLOCKS) + tuple(sorted(SHARED_KINDS))
 
 #: the ROADMAP Queue 1 item that brings each missing block kind
-KIND_ITEMS = {"mlstm": 3, "slstm": 3, "moe": 4, "mamba2": 5,
-              "shared_attn": 5, "attn_cross": 6}
+KIND_ITEMS = {"moe": 4, "attn_cross": 6}
+
+
+def _entry_kind(b: BlockSpec) -> str:
+    return "attn" if b.kind in SHARED_KINDS else b.kind
 
 
 def unported(cfg: ModelConfig) -> Optional[str]:
@@ -69,7 +89,7 @@ def unported(cfg: ModelConfig) -> Optional[str]:
         return None
     return (f"{cfg.name} needs {', '.join(dict.fromkeys(missing))}, which "
             f"repro_torch does not have yet: the port's LM substrate has "
-            f"the dense decoder blocks {', '.join(KINDS)} only")
+            f"the block kinds {', '.join(KINDS)} only")
 
 
 #: the products whose outputs ``remat="dots"`` keeps
@@ -96,9 +116,9 @@ def _remat(policy: str):
 
 
 class Model(nn.Module):
-    """A dense decoder built on ``device`` (``None`` = the GPU, raising
-    where there is none) from ``generator`` (default: seed 0 on that
-    device), tensor by tensor, in ``cfg.param_dtype``."""
+    """A decoder built on ``device`` (``None`` = the GPU, raising where
+    there is none) from ``generator`` (default: seed 0 on that device),
+    tensor by tensor, in ``cfg.param_dtype``."""
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
@@ -118,10 +138,19 @@ class Model(nn.Module):
         self.unembed = None if cfg.tie_embeddings else \
             _param(_init_dense(gen, cfg.d_model, cfg.vocab_size, dt))
         self.final_ln = _ones(cfg, gen)
-        self.blocks = nn.ModuleList(
-            AttnBlock(cfg, local=b.kind == "attn_local", generator=gen)
-            for _ in range(cfg.n_super) for b in cfg.pattern
-            for _ in range(b.repeat))
+        shared: Dict[int, nn.Module] = {}
+        blocks = []
+        for _ in range(cfg.n_super):
+            for i, b in enumerate(cfg.pattern):
+                build = BLOCKS[_entry_kind(b)]
+                for _ in range(b.repeat):
+                    if b.kind not in SHARED_KINDS:
+                        blocks.append(build(cfg, generator=gen))
+                        continue
+                    if i not in shared:     # built at its first use
+                        shared[i] = build(cfg, generator=gen)
+                    blocks.append(shared[i])
+        self.blocks = nn.ModuleList(blocks)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.final_ln)
@@ -148,7 +177,8 @@ class Model(nn.Module):
         """``batch``: ``{"tokens": [B,S], "labels": [B,S]}`` -> ``(total,
         {"xent", "aux"})``, the reference's ``loss_fn``: the mean cross
         entropy (softcapped by ``cfg.logit_softcap``) plus ``0.01·aux``,
-        where ``aux`` (the MoE balance loss) is 0 for dense blocks."""
+        where ``aux`` (the MoE balance loss) is 0 for every ported
+        block."""
         logits = self(batch["tokens"])
         loss = softmax_xent(logits, batch["labels"], self.cfg.logit_softcap)
         aux = torch.zeros((), dtype=torch.float32, device=loss.device)
@@ -157,13 +187,15 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, max_len: int
                    ) -> List[Dict[str, torch.Tensor]]:
-        """One ``{"k", "v"}`` pair of [B, max_len, KV, hd] per block."""
+        """One cache per position of ``blocks`` (a shared block's too):
+        K/V of [B, max_len, KV, hd] for attention, the recurrent state
+        for the others."""
         return [blk.init_cache(batch, max_len) for blk in self.blocks]
 
     def decode_step(self, cache: List[Dict[str, torch.Tensor]],
                     tokens: torch.Tensor, pos: int) -> torch.Tensor:
-        """tokens: [B,1]; ``pos``: the current cache length.  Writes this
-        token's K/V into ``cache`` and returns logits [B,1,V]."""
+        """tokens: [B,1]; ``pos``: the current cache length.  Advances
+        every block's cache by this token and returns logits [B,1,V]."""
         x = self.embed[tokens].to(dtype_of(self.cfg.compute_dtype))
         for blk, c in zip(self.blocks, cache):
             x = blk.decode(c, x, pos)

@@ -201,6 +201,9 @@ def test_quickstart_runs_on_the_cpu(capsys):
         "quickstart_torch", REPO / "examples" / "quickstart_torch.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod.main(["--device", "cpu", "--budget", "1200"])
+    assert mod.main(["--device", "cpu", "--budget", "1200"]) == 0
     out = capsys.readouterr().out
     assert "SparseMap" in out and "oracle check" in out
+    # step 2 trains the xlstm-350m smoke config, as the reference's does
+    assert "training xlstm-350m (smoke config)" in out
+    assert out.splitlines()[-1].endswith("(improved)")

@@ -28,7 +28,7 @@ from repro_torch.models.model import Model, unported
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORTED = ("mistral-nemo-12b", "gemma3-12b", "starcoder2-7b",
-          "command-r-35b")
+          "command-r-35b", "xlstm-350m", "zamba2-2.7b")
 
 
 def _run(args, env_extra=None):
@@ -56,12 +56,11 @@ def test_decode_cli_on_the_cpu(arch):
 
 @pytest.mark.slow
 def test_decode_cli_refuses_an_unported_arch():
-    out = _run(["decode", "--arch", "zamba2-2.7b", "--smoke",
+    out = _run(["decode", "--arch", "arctic-480b", "--smoke",
                 "--device", "cpu"])
     assert out.returncode != 0
-    assert "'mamba2' (ROADMAP Queue 1 item 5)" in out.stderr
-    assert "'shared_attn' (ROADMAP Queue 1 item 5)" in out.stderr
-    assert "'mamba2'" in out.stderr and "serve ok" not in out.stdout
+    assert "'moe' (ROADMAP Queue 1 item 4)" in out.stderr
+    assert "serve ok" not in out.stdout
 
 
 def test_decode_main_resolves_the_device_before_building(monkeypatch,

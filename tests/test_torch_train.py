@@ -480,11 +480,12 @@ def test_run_train_returns_the_live_state():
 
 
 @pytest.mark.parametrize("argv,reason", [
-    ([], "ROADMAP Queue 1 item 3"),
+    ([], "no CUDA device"),
+    (["--arch", "kimi-k2-1t-a32b"], "ROADMAP Queue 1 item 4"),
     (["--arch", "mistral-nemo-12b", "--smoke", "--mesh", "2x4",
       "--device", "cpu"], "ROADMAP Queue 1 item 8"),
     (["--arch", "mistral-nemo-12b"], "no CUDA device"),
-], ids=["xlstm-default", "mesh-2x4", "no-gpu"])
+], ids=["xlstm-default", "kimi-moe", "mesh-2x4", "no-gpu"])
 def test_cli_refusals_name_the_reason(argv, reason, monkeypatch, capsys):
     """Each refusal exits 2 before anything is built."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
