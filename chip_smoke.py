@@ -56,14 +56,35 @@ where there is no CUDA device or the port's package is missing.  It
    and nonzero, generated tokens in range, no kernel launched (xlstm has
    no attention, zamba2's head size 80 is not the flash kernel's); one
    JSON line per arch;
-9. holds the GPU evaluator against the CPU one on 262,144 genomes per
-   workload and measures its rows per second;
-10. holds each kernel against its plain PyTorch version on the card — the
+9. drives the mixture-of-experts models (``models.moe``, ``MoeBlock``) at
+   full width in bf16 with random weights from a seed, one JSON line
+   each: ``arctic-480b`` cut to 2 of 35 layers (128 experts top 2 and the
+   dense residual FFN; prefill of 32,768 tokens with the flash kernel in
+   both layers, the share of (token, slot) pairs dropped for capacity,
+   the ``serve decode`` loop, ``run_train`` with the experts cut to 16)
+   and ``kimi-k2-1t-a32b`` cut to 1 of 61 layers (384 experts top 8,
+   prefill of 8,192 tokens on the chunked route, hd 112; decode); checks
+   at arctic's widths: forward against 256 ``decode_step`` calls in fp32
+   without drops, the flash route against the chunked one over the
+   positions whose whole context was routed alike, grouped against flat dispatch, training's
+   losses, balance loss and every gradient (each expert's slice
+   included), a falling loss on a fixed batch;
+10. drives the encoder-decoder ``seamless-m4t-large-v2`` at full size (24
+    + 24 layers, bf16): a prefill of 32,768 tokens on 32,768 frames with
+    all 72 attentions on the flash kernel (encoder self-attention and
+    cross-attention in its full mode), the ``serve decode`` loop (its
+    encoder once, on the kernel), ``run_train`` at seq 1,024, and checks:
+    flash against chunked, decode against forward, every gradient;
+11. holds the GPU evaluator against the CPU one on 262,144 genomes per
+    workload and measures its rows per second;
+12. holds each kernel against its plain PyTorch version on the card — the
     reference's test shapes, the edges of each route's tiles (half a query
     tile, empty, fully dense and all-zero block-rows, every column tile) and
-    the workload shapes; at the LM prefill's attention shape against the
-    model's chunked route — and times kernel, plain version and one library
-    call beside the least time the card could take (``bound_ms``).  Each
+    the workload shapes; at the model prefills' attention shapes
+    (``mistral-nemo-12b``, ``arctic-480b``, ``seamless-m4t-large-v2``)
+    against the model's chunked route — and times kernel, plain version
+    and one library call beside the least time the card could take
+    (``bound_ms``).  Each
     row names the route that ran (``kernel_route``: ``wgmma``, ``wmma`` or
     ``fma``, chosen by the wrappers' ``flash_plan`` / ``bsr_plan``);
     ``graph_ms`` is the kernel's device time without the host's share.
@@ -815,6 +836,25 @@ def _kernel_family(name):
     return "other (elementwise, reductions, copies)"
 
 
+def _reset_flash_counts():
+    """Set the flash kernel's launch count and the attention routes'
+    call counts to 0."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.attention import attention
+    flash_attention.launches = 0
+    attention.calls.update(flash=0, chunked=0)
+
+
+def _flash_counts():
+    """The flash kernel's launches and the attention routes' calls since
+    the last :func:`_reset_flash_counts`."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.attention import attention
+    return dict(flash_kernel=flash_attention.launches,
+                route_flash=attention.calls["flash"],
+                route_chunked=attention.calls["chunked"])
+
+
 def lm_phase(device):
     """The dense decoder on the card at full width (``mistral-nemo-12b``,
     bf16, random weights from a seed): one prefill forward of S = 32,768
@@ -826,21 +866,11 @@ def lm_phase(device):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch import serve
     from repro_torch.launch.steps import build_prefill_step, build_serve_step
-    from repro_torch.models.attention import attention
     from repro_torch.models.model import Model
 
-    def reset():
-        flash_attention.launches = 0
-        attention.calls.update(flash=0, chunked=0)
-
-    def counts():
-        return dict(flash_kernel=flash_attention.launches,
-                    route_flash=attention.calls["flash"],
-                    route_chunked=attention.calls["chunked"])
-
+    reset, counts = _reset_flash_counts, _flash_counts
     out = dict(arch=LM_ARCH)
     cfg = get_config(LM_ARCH)
     n_layers = cfg.n_layers
@@ -921,7 +951,7 @@ def lm_phase(device):
 
     # ---- decode: the serve decode loop, counts at 0 just before
     b, pl_, g = LM_DECODE
-    prompts = torch.from_numpy(serve.make_prompts(cfg.vocab_size, b, pl_)
+    prompts = torch.from_numpy(serve.make_inputs(cfg.vocab_size, b, pl_)[0]
                                ).to(device)
     reset()
     res = serve.run_decode(model, prompts, g)
@@ -1518,19 +1548,26 @@ def _cut(cfg, n_super, **kw):
     return dataclasses.replace(cfg, n_super=n_super or cfg.n_super, **kw)
 
 
+def _rel_rms_positions(a, b):
+    """Per position ``rms(a - b) / rms(b)`` over the last axis."""
+    a, b = a.float(), b.float()
+    return (a - b).pow(2).mean(-1).sqrt() / b.pow(2).mean(-1).sqrt()
+
+
 def _rel_rms_worst(a, b):
     """Worst per-position ``rms(a - b) / rms(b)`` over the last axis."""
-    err = (a.float() - b.float()).pow(2).mean(-1).sqrt()
-    return float((err / b.float().pow(2).mean(-1).sqrt()).max())
+    return float(_rel_rms_positions(a, b).max())
 
 
-def _decode_all(model, toks):
-    """Logits of ``decode_step`` at every position of ``toks`` [B,S]."""
+def _decode_all(model, toks, enc_embeds=None):
+    """Logits of ``decode_step`` at every position of ``toks`` [B,S]
+    (after ``init_cache(enc_embeds=...)`` for an encoder-decoder)."""
     import torch
     from repro_torch.launch.steps import build_serve_step
     step = build_serve_step(model)
     with torch.inference_mode():
-        cache = model.init_cache(toks.shape[0], toks.shape[1])
+        cache = model.init_cache(toks.shape[0], toks.shape[1],
+                                 enc_embeds=enc_embeds)
         return torch.cat([step(cache, toks[:, i:i + 1], i)
                           for i in range(toks.shape[1])], dim=1)
 
@@ -1622,7 +1659,7 @@ def _ssm_arch(device, arch):
 
     # ---- decode: the serve decode loop
     b, pl_, g = SSM_DECODE
-    prompts = torch.from_numpy(serve.make_prompts(cfg.vocab_size, b, pl_)
+    prompts = torch.from_numpy(serve.make_inputs(cfg.vocab_size, b, pl_)[0]
                                ).to(device)
     res = serve.run_decode(model, prompts, g)
     gen = res["tokens"]
@@ -1783,6 +1820,769 @@ def ssm_phase(device):
     return out
 
 
+# --------------------------------------------------------------------- moe
+
+MOE_ARCHS = ("arctic-480b", "kimi-k2-1t-a32b")
+# depth on one card of 80 GB: arctic's 35 layers hold 13.6 B parameters
+# each (952 GB in bf16), kimi's 61 hold 17 B each (2.1 TB); 2 and 1
+# layers keep 55.4 and 38.8 GB of weights, beside the activations
+MOE_LAYERS = {"arctic-480b": 2, "kimi-k2-1t-a32b": 1}
+# prefill: arctic at prefill_32k's length; kimi at 8,192, since its head
+# size of 112 takes the chunked route (fp32 scores of 17 GB a chunk at
+# 32,768, beside 10.7 GB of logits)
+MOE_PREFILL_S = {"arctic-480b": 32_768, "kimi-k2-1t-a32b": 8192}
+MOE_DECODE = (4, 64, 32)            # batch, prompt, generated: the CLI's
+# arctic's training: experts cut 128 -> 16 (top 2 kept), so weights,
+# gradients and fp32 moments (~51 GB) fit with the activations of seq
+# 4,096 under remat "full"; 1 warm-up step, 3 timed
+MOE_TRAIN = dict(experts=16, seq=4096, batch=1, steps=4, warmup=1)
+MOE_CHECK_EXPERTS = 16
+# check (1): fp32, 1 layer, forward against MOE_DECODE_CHECK_S
+# decode_steps at capacity_factor = experts / top_k (nothing dropped in
+# either: decode's capacity is max(1, ...) of its B tokens, prefill's of
+# the sequence, and the two agree only without drops)
+MOE_DECODE_CHECK_S = 256
+# check (2): the flash route against the chunked one, bf16, both layers,
+# held over at least this many positions whose context was routed alike
+MOE_ROUTES_S = 4096
+MOE_ROUTES_MIN_CONTEXT = 32
+# check (3): grouped (256 groups) against flat dispatch on this many
+# tokens, fp32, no drops, at the reference test's tolerance
+MOE_GROUPED_T = 4096
+MOE_GROUPED_TOL = (1e-4, 1e-5)       # rtol, atol
+# check (4): gradients on this many tokens, drawn uniformly (the
+# pipeline's Zipf-skewed tokens reach a few experts: recorded); the loss
+# of a 1-layer fp32 model falls on a fixed batch of (batch, seq) in
+# TRAIN_CHECK_STEPS steps
+MOE_GRAD_S = 1024
+MOE_LOSS_BATCH = (2, 512)
+MOE_LABELS = {"repro.moe": "moe ffn (router, dispatch, experts, combine)"}
+EXPERT_LEAVES = (".moe.w1", ".moe.w3", ".moe.w2")
+MOE_SOURCES = {
+    "arctic-480b": "hf:Snowflake/snowflake-arctic-base (35 layers, d 7,168, "
+    "56 heads / 8 KV of 128, 128 experts top 2 of d_ff 4,864, a dense "
+    "residual FFN of 4,864, vocab 32,000)",
+    "kimi-k2-1t-a32b": "Kimi K2 (configs/archs.py: 61 layers, d 7,168, 64 "
+    "heads / 8 KV of 112, 384 experts top 8 of d_ff 2,048, vocab "
+    "163,840)"}
+
+
+@contextlib.contextmanager
+def _routes_recorded():
+    """Every ``moe.route`` call's top-k experts ``[G, Tg, k]`` for the
+    duration of the block, in call order (one per MoE layer a pass)."""
+    from repro_torch.models import moe
+    seen = []
+    fn = moe.route
+
+    def wrapped(xg, wg, top_k):
+        out = fn(xg, wg, top_k)
+        seen.append(out[2].detach().clone())
+        return out
+
+    moe.route = wrapped
+    try:
+        yield seen
+    finally:
+        moe.route = fn
+
+
+def _kept_experts(cfg, top_i):
+    """``top_i [G, Tg, k]`` -> the experts each token was kept in, sorted,
+    -1 where a slot was dropped for capacity, ``[G·Tg, k]``; and the
+    share of (token, slot) pairs dropped."""
+    import torch
+    from repro_torch.models import moe
+    g, tg, k = top_i.shape
+    cap = moe.capacity(tg, k, cfg.capacity_factor, cfg.n_experts)
+    _, keep = moe.slot_positions(top_i, cfg.n_experts, cap)
+    kept = torch.where(keep.reshape(g, tg, k), top_i, -1)
+    return (kept.reshape(g * tg, k).sort(dim=-1).values,
+            float((~keep).float().mean()))
+
+
+def moe_forward_flops(cfg, seq, caps):
+    """FLOPs of one forward over ``seq`` tokens of one sequence as the
+    algorithm computes them: the attention projections, causal attention
+    (its half of S²), the router, the experts' three products over the
+    capacity buffers of each layer (``caps``: slots per expert, all
+    groups), the dense residual FFN, the LM head."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    per_layer = 2.0 * seq * (2 * d * h * hd + 2 * d * kv * hd) \
+        + 4.0 * h * (seq * (seq + 1) / 2) * hd \
+        + 2.0 * seq * d * cfg.n_experts
+    if cfg.moe_dense_residual:
+        per_layer += 6.0 * seq * d * cfg.d_ff
+    experts = sum(6.0 * cfg.n_experts * c * d * cfg.moe_d_ff for c in caps)
+    return cfg.n_layers * per_layer + experts + 2.0 * seq * d * \
+        cfg.vocab_size
+
+
+def _moe_decode_bytes(model, cfg, batch, cache_bytes):
+    """Bytes one decode step must read: every weight but the embedding
+    table (``B`` rows of it), and the caches.  ``all_experts``: the
+    reference's decode, which runs every expert at capacity 1;
+    ``routed``: only the ``B·top_k`` experts a step routes to, at most,
+    per layer."""
+    emb = model.embed.element_size()
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    base = params - model.embed.numel() * emb + batch * cfg.d_model * emb \
+        + cache_bytes
+    per_expert = 3 * cfg.d_model * cfg.moe_d_ff * emb
+    unrouted = max(cfg.n_experts - batch * cfg.top_k, 0)
+    return base, base - cfg.n_layers * unrouted * per_expert
+
+
+def _moe_arch(device, arch):
+    """One arch of the ``moe`` phase: prefill, decode and, for arctic,
+    training and checks (1)–(4); check (5) for both."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as flash_lib
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.launch.train import run_train
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.optim import optimizer as opt
+
+    reset, counts = _reset_flash_counts, _flash_counts
+    full = get_config(arch)
+    cfg = _cut(full, MOE_LAYERS[arch])
+    s = MOE_PREFILL_S[arch]
+    want_flash = cfg.n_layers if cfg.hd in flash_lib.HD_CHOICES else 0
+    reduced = dict(layers=[full.n_layers, cfg.n_layers])
+    if s != 32_768:
+        reduced["prefill_seq"] = [32_768, s]
+    out = dict(arch=arch, source=MOE_SOURCES[arch], layers=cfg.n_layers,
+               experts=cfg.n_experts, top_k=cfg.top_k,
+               dtype=cfg.param_dtype, reduced=reduced)
+    rng = np.random.default_rng(0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device,
+                  generator=torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    out.update(build_s=time.perf_counter() - t0, param_count=sum(
+        p.numel() for p in model.parameters()), param_bytes=param_bytes)
+
+    # ---- prefill, one sequence: the main path, counts at 0 just before
+    prefill = build_prefill_step(model)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, s))
+                              ).to(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    logits = prefill({"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    check(launches == dict(flash_kernel=want_flash, route_flash=want_flash,
+                           route_chunked=cfg.n_layers - want_flash),
+          f"{arch} prefill: {launches}, want the flash kernel in "
+          f"{want_flash} of {cfg.n_layers} layers")
+    check(tuple(logits.shape) == (1, s, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{arch} prefill: logits {tuple(logits.shape)} or not finite")
+    peak = torch.cuda.max_memory_allocated(device)
+    del logits
+    with _routes_recorded() as routes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    drops = [_kept_experts(cfg, r)[1] for r in routes]
+    caps = [r.shape[0] * moe.capacity(r.shape[1], cfg.top_k,
+                                      cfg.capacity_factor, cfg.n_experts)
+            for r in routes]
+    with _labelled(moe, "_dispatch", "repro.moe"):
+        fams, dev_ms, n_ops, top = device_ms_by_family(
+            lambda: prefill({"tokens": tokens}), MOE_LABELS)
+    flops = moe_forward_flops(cfg, s, caps)
+    moved = param_bytes + s * cfg.vocab_size * 2
+    bound_s = max(flops / PEAK_FLOPS["bfloat16"], moved / HBM_BYTES_PER_S)
+    out["prefill"] = dict(
+        batch=1, seq=s, launches=launches, wall_s=wall,
+        wall_s_repeat=wall2, tokens_per_s=s / min(wall, wall2),
+        capacity_per_expert=caps, dropped_share_by_layer=drops,
+        dropped_share=sum(drops) / len(drops), flops=flops, bytes=moved,
+        bound_s=bound_s, share_of_bound=bound_s / min(wall, wall2),
+        bound_convention="FLOPs as computed (experts over their capacity "
+        "buffers, causal attention's half of S²) at 989 TFLOP/s bf16, "
+        "or weights + logits at 3.35 TB/s, the larger",
+        device_ms=dev_ms, device_ops=n_ops,
+        device_ms_by_family=fams, top_kernels_ms=top,
+        max_memory_allocated_bytes=peak)
+    del tokens
+
+    # ---- decode: the serve decode loop, counts at 0 just before
+    b, pl_, g = MOE_DECODE
+    prompts = torch.from_numpy(serve.make_inputs(cfg.vocab_size, b, pl_)[0]
+                               ).to(device)
+    reset()
+    res = serve.run_decode(model, prompts, g)
+    dec_launches = counts()
+    gen = res["tokens"]
+    # check (5)
+    check(gen.shape == (b, g) and ((gen >= 0) & (gen < cfg.vocab_size)
+                                   ).all(),
+          f"{arch} decode: generated tokens {gen.shape} out of range")
+    check(dec_launches == dict(flash_kernel=0, route_flash=0,
+                               route_chunked=0),
+          f"{arch} decode: {dec_launches}; decode steps call no prefill "
+          f"route")
+    step = build_serve_step(model)
+    with torch.inference_mode():
+        cache = model.init_cache(b, pl_ + g + 1)
+        tok = prompts[:, :1]
+        step_kernels, step_ops = device_ms_by_kernel(
+            lambda: step(cache, tok, pl_ + g))
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for c in cache for t in c.values())
+        del cache
+    step_ms = res["decode_s"] / g * 1e3
+    read_all, read_routed = _moe_decode_bytes(model, cfg, b, cache_bytes)
+    step_dev = sum(step_kernels.values())
+    out["decode"] = dict(
+        batch=b, prompt=pl_, gen=g, launches=dec_launches,
+        prefill_by_steps_s=res["prefill_s"], decode_s=res["decode_s"],
+        ms_per_step=step_ms, tokens_per_s=b * g / res["decode_s"],
+        bytes_per_step=read_all,
+        bound_ms_per_step=read_all / HBM_BYTES_PER_S * 1e3,
+        routed_bytes_per_step=read_routed,
+        routed_bound_ms_per_step=read_routed / HBM_BYTES_PER_S * 1e3,
+        share_of_bound=read_all / HBM_BYTES_PER_S * 1e3 / step_ms,
+        device_ops_per_step=step_ops, device_ms_per_step=step_dev,
+        device_idle_share=1.0 - step_dev / step_ms,
+        top_kernels_ms=dict(list(step_kernels.items())[:8]),
+        first_generated=gen[:2, :8].tolist())
+    out["launches"] = dict(prefill=launches, decode=dec_launches)
+
+    if arch != MOE_ARCHS[0]:            # the checks run at arctic's widths
+        del model, prefill, step
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return out
+
+    # ---- check (2): the flash route against the chunked route, bf16
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (1, MOE_ROUTES_S))).to(device)
+    with torch.inference_mode():
+        reset()
+        with _routes_recorded() as rf:
+            lf = model(toks)
+        flash_counts = counts()
+        reset()
+        with _routes_recorded() as rc:
+            lc = model(toks, force_chunked=True)
+        chunked_counts = counts()
+    check(flash_counts == dict(flash_kernel=cfg.n_layers,
+                               route_flash=cfg.n_layers, route_chunked=0)
+          and chunked_counts == dict(flash_kernel=0, route_flash=0,
+                                     route_chunked=cfg.n_layers),
+          f"{arch} routes check: flash run {flash_counts}, chunked run "
+          f"{chunked_counts}")
+    alike = [(_kept_experts(cfg, a)[0] == _kept_experts(cfg, c)[0]).all(-1)
+             for a, c in zip(rf, rc)]
+    same = torch.stack(alike).all(0)
+    # gated: the positions whose whole context was routed alike in every
+    # layer, which see only the two attention routes' rounding.  A token
+    # routed otherwise in an earlier layer reaches every later position
+    # through the next layer's attention, so the positions merely routed
+    # alike themselves carry that routing difference too: recorded only
+    context = torch.stack(alike[:-1]).all(0).int().cumprod(0).bool() & same
+    ratio = _rel_rms_positions(lf, lc)[0]
+    n_context = int(context.sum())
+    worst = float(ratio[context].max()) if n_context else math.inf
+    check(n_context >= MOE_ROUTES_MIN_CONTEXT and math.isfinite(worst)
+          and worst <= LM_REL_RMS,
+          f"{arch} flash vs chunked: per-position error rms {worst:.3g} of "
+          f"the logits' rms over the {n_context} positions whose context "
+          f"was routed alike (limits {LM_REL_RMS}, at least "
+          f"{MOE_ROUTES_MIN_CONTEXT} positions)")
+    out["check_routes"] = dict(
+        layers=cfg.n_layers, seq=MOE_ROUTES_S,
+        context_routed_alike_positions=n_context,
+        min_context_positions=MOE_ROUTES_MIN_CONTEXT,
+        worst_rel_rms_context_routed_alike=worst, rel_rms_limit=LM_REL_RMS,
+        routed_differently_share=1.0 - float(same.float().mean()),
+        worst_rel_rms_routed_alike=float(ratio[same].max())
+        if bool(same.any()) else None,
+        worst_rel_rms_all_positions=float(ratio.max()))
+    del lf, lc, toks, model, prefill, step, rf, rc
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- training through run_train (experts cut), checks (4)
+    tr = MOE_TRAIN
+    tcfg = _cut(cfg, None, n_experts=tr["experts"])
+    check(tcfg.remat == "full", f"{tcfg.name}: remat {tcfg.remat!r}")
+    lines = []
+    torch.cuda.reset_peak_memory_stats(device)
+    reset()
+    t0 = time.perf_counter()
+    res = run_train(tcfg, steps=tr["steps"], batch=tr["batch"],
+                    seq=tr["seq"], device=device, log_every=1,
+                    log=lines.append)
+    torch.cuda.synchronize()
+    train_launches = counts()
+    losses = res["losses"]
+    check(len(losses) == tr["steps"] and all(map(math.isfinite, losses)),
+          f"{arch} train: losses {losses}")
+    check(train_launches["flash_kernel"] == 0
+          and train_launches["route_flash"] == 0,
+          f"{arch} train: {train_launches}; training must not run the "
+          f"forward-only flash kernel")
+    tmodel = res["model"]
+    n_params = sum(p.numel() for p in tmodel.parameters())
+    step_s = res["step_s"][tr["warmup"]:]
+    mean_s = sum(step_s) / len(step_s)
+    tcaps = [moe.capacity(tr["batch"] * tr["seq"], tcfg.top_k,
+                          tcfg.capacity_factor, tcfg.n_experts)
+             ] * tcfg.n_layers
+    tflops = 3.0 * tr["batch"] * moe_forward_flops(tcfg, tr["seq"], tcaps)
+    t_bound_s = tflops / PEAK_FLOPS["bfloat16"] + \
+        OPT_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S
+    train_peak = torch.cuda.max_memory_allocated(device)
+    batch = {k: torch.from_numpy(v[:1, :MOE_GRAD_S]).to(device)
+             for k, v in res["data"].batch_at(tr["steps"]).items()}
+    with torch.no_grad():
+        total, parts = tmodel.loss_fn(batch)
+    total, xent, aux = (float(t) for t in (total, parts["xent"],
+                                           parts["aux"]))
+    check(all(map(math.isfinite, (total, xent, aux))) and aux > 0
+          and abs(total - (xent + 0.01 * aux)) <= 1e-5 * abs(total),
+          f"{arch} train: total {total}, xent {xent}, aux {aux}; want aux "
+          f"> 0 and total = xent + 0.01·aux")
+    def expert_slices(grads):
+        """(expert slices with a nonzero gradient, all expert slices)"""
+        live = [float(gr[e].abs().max()) > 0 for n, gr in grads.items()
+                if n.endswith(EXPERT_LEAVES) for e in range(gr.shape[0])]
+        return sum(live), len(live)
+
+    # the pipeline's Zipf-skewed tokens route to a few experts (recorded);
+    # every expert is held to a gradient on tokens drawn uniformly
+    pipeline_live = expert_slices(
+        steps_lib.loss_and_grads(tmodel, batch)[1])
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (1, MOE_GRAD_S + 1))).to(device)
+    _, grads = steps_lib.loss_and_grads(
+        tmodel, dict(tokens=toks[:, :-1], labels=toks[:, 1:]))
+    bad = [n for n, gr in grads.items()
+           if not (bool(torch.isfinite(gr).all()) and
+                   float(gr.abs().max()) > 0)]
+    for n, gr in grads.items():
+        if n.endswith(EXPERT_LEAVES):
+            bad += [f"{n}[{e}]" for e in range(gr.shape[0])
+                    if not float(gr[e].abs().max()) > 0]
+    check(not bad and len(grads) == len(list(tmodel.parameters())),
+          f"{arch} train: no nonzero finite gradient for {bad}")
+    out["train"] = dict(
+        layers=tcfg.n_layers, experts=tcfg.n_experts, top_k=tcfg.top_k,
+        seq=tr["seq"], batch=tr["batch"], steps=tr["steps"],
+        warmup_steps=tr["warmup"], remat=tcfg.remat, param_count=n_params,
+        reduced=dict(experts=[cfg.n_experts, tcfg.n_experts],
+                     layers=[full.n_layers, tcfg.n_layers]),
+        wall_s=time.perf_counter() - t0, losses=losses, lines=lines,
+        step_s=res["step_s"], ms_per_step=mean_s * 1e3,
+        tokens_per_s=tr["batch"] * tr["seq"] / mean_s, model_flops=tflops,
+        bound_ms=t_bound_s * 1e3, share_of_bound=t_bound_s / mean_s,
+        bound_convention="3 x forward FLOPs (as computed) at 989 TFLOP/s, "
+        "plus the optimizer's 22 bytes a parameter at 3.35 TB/s",
+        max_memory_allocated_bytes=train_peak, launches=train_launches,
+        check_loss=dict(total=total, xent=xent, aux=aux),
+        check_grads=dict(
+            leaves=len(grads), expert_slices=expert_slices(grads)[1],
+            tokens=MOE_GRAD_S, tokens_drawn="uniformly", ok=True,
+            pipeline_batch_expert_slices_with_gradient=pipeline_live))
+    out["launches"]["train"] = train_launches
+    del grads, res, tmodel, batch, toks
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- check (1): fp32 forward against decode_step, nothing dropped
+    ccfg = _cut(cfg, 1, n_experts=MOE_CHECK_EXPERTS,
+                capacity_factor=MOE_CHECK_EXPERTS / cfg.top_k,
+                param_dtype="float32", compute_dtype="float32")
+    cmodel = Model(ccfg, device=device,
+                   generator=torch.Generator(device=device).manual_seed(1))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (1, MOE_DECODE_CHECK_S))).to(device)
+    fwd = build_prefill_step(cmodel)({"tokens": toks})
+    dec = _decode_all(cmodel, toks)
+    worst = _rel_rms_worst(dec, fwd)
+    check(math.isfinite(worst) and worst <= SSM_CHECK_REL_RMS,
+          f"{arch} fp32 decode_step vs forward: per-position error rms "
+          f"{worst:.3g} of the logits' rms (limit {SSM_CHECK_REL_RMS})")
+    out["check_decode_fp32"] = dict(
+        layers=ccfg.n_layers, experts=ccfg.n_experts,
+        capacity_factor=ccfg.capacity_factor, seq=MOE_DECODE_CHECK_S,
+        worst_rel_rms=worst, rel_rms_limit=SSM_CHECK_REL_RMS)
+    del fwd, dec
+
+    # ---- check (3): grouped against flat dispatch, fp32, no drops
+    x = torch.randn((1, MOE_GROUPED_T, cfg.d_model), device=device,
+                    generator=torch.Generator(device=device).manual_seed(2))
+    with torch.inference_mode():
+        w = dict(cmodel.blocks[0].moe.named_parameters())
+        cf = ccfg.capacity_factor
+        y_flat, a_flat = moe.moe_ffn(x, w, ccfg.top_k, cf)
+        y_grp, a_grp = moe.moe_ffn_grouped(x, w, ccfg.top_k, cf, 256)
+    rtol, atol = MOE_GROUPED_TOL
+    check(_allclose(y_grp, y_flat, rtol, atol)
+          and abs(float(a_grp) - float(a_flat)) <= 1e-6,
+          f"{arch} grouped vs flat dispatch: max |dy| "
+          f"{_max_err(y_grp, y_flat):.3g} (rtol {rtol}, atol {atol}), aux "
+          f"{float(a_grp)} vs {float(a_flat)}")
+    out["check_grouped"] = dict(
+        tokens=MOE_GROUPED_T, groups=moe.n_groups_for(MOE_GROUPED_T, 256),
+        experts=ccfg.n_experts, dtype="float32",
+        max_abs_err=_max_err(y_grp, y_flat), rtol=rtol, atol=atol)
+    del x, y_flat, y_grp, cmodel
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- check (4): the loss of a 1-layer fp32 model falls on a fixed
+    # batch at the width-scaled lr (train_phase's check (4))
+    lcfg = _cut(cfg, 1, n_experts=MOE_CHECK_EXPERTS,
+                param_dtype="float32", compute_dtype="float32")
+    lmodel = Model(lcfg, device=device,
+                   generator=torch.Generator(device=device).manual_seed(1))
+    lmodel.requires_grad_(True)
+    lb, ls = MOE_LOSS_BATCH
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=ls,
+                                  global_batch=lb))
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in data.batch_at(0).items()}
+    lr = TRAIN_LR_SMOKE * math.sqrt(64 / cfg.d_model)
+    ocfg = opt.OptConfig(lr=lr, warmup_steps=1, total_steps=50)
+    step = steps_lib.build_train_step(
+        lmodel, ocfg, opt.init(dict(lmodel.named_parameters()), ocfg))
+    fixed = [float(step(batch)["loss"]) for _ in range(TRAIN_CHECK_STEPS)]
+    check(all(map(math.isfinite, fixed)) and
+          fixed[-1] < fixed[0] - TRAIN_MIN_DROP,
+          f"{arch}: the loss on a fixed batch went {fixed} at lr {lr:.3g}")
+    out["check_loss_decreases"] = dict(
+        layers=lcfg.n_layers, experts=lcfg.n_experts, batch=lb, seq=ls,
+        lr=lr, losses=fixed, drop=fixed[0] - fixed[-1],
+        min_drop=TRAIN_MIN_DROP)
+    del lmodel, step, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(device):
+    """The mixture-of-experts models on the card at full width, bf16,
+    random weights from seed 0: ``arctic-480b`` (2 of 35 layers, 128
+    experts top 2 plus the dense residual FFN) and ``kimi-k2-1t-a32b`` (1
+    of 61 layers, 384 experts top 8), each with one prefill forward
+    (32,768 and 8,192 tokens) and the ``serve decode`` loop; arctic with
+    ``run_train`` steps (experts cut to 16) and checks (1) forward vs
+    ``decode_step`` in fp32, (2) flash vs chunked, (3) grouped vs flat
+    dispatch, (4) training's losses, aux and gradients, and a falling
+    loss; (5) tokens in range and the flash launch counts for both.
+    Emits one JSON line per arch."""
+    out = dict(archs={}, runs={})
+    for arch in MOE_ARCHS:
+        t0 = time.perf_counter()
+        r = _moe_arch(device, arch)
+        r["seconds"] = time.perf_counter() - t0
+        r["card"] = card_line()
+        emit(dict(phase="moe", **r))
+        out["runs"][arch] = r
+        out["archs"][arch] = dict(
+            prefill_tokens_per_s=r["prefill"]["tokens_per_s"],
+            prefill_bound_s=r["prefill"]["bound_s"],
+            dropped_share=r["prefill"]["dropped_share"],
+            decode_ms_per_step=r["decode"]["ms_per_step"],
+            decode_bound_ms=r["decode"]["bound_ms_per_step"],
+            launches=r["launches"], seconds=r["seconds"])
+    out["card"] = card_line()
+    return out
+
+
+# ------------------------------------------------------------------ encdec
+
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_SOURCE = "arXiv:2308.11596 (SeamlessM4T v2 large: 24 encoder + 24 " \
+    "decoder layers, d 1,024, 16 heads, d_ff 8,192)"
+# prefill: decoder tokens and encoder frames both at prefill_32k's length
+# (the pipeline's seq_len feeds both)
+ENCDEC_PREFILL_S = 32_768
+ENCDEC_DECODE = (4, 64, 32)         # batch, prompt, generated: the CLI's
+# train: seq 1,024 (not train_4k's 4,096: with the config's remat "none"
+# the chunk-0 cross-attention scores of 24 layers alone are ~26 GB at
+# 4,096), batch 1, full depth; 1 warm-up step, 3 timed
+ENCDEC_TRAIN = dict(seq=1024, batch=1, steps=4, warmup=1)
+ENCDEC_ROUTES_S = 4096              # check (1)
+ENCDEC_DECODE_CHECK_S = 256         # check (2)
+ENCDEC_GRAD_S = 256                 # check (3)
+
+
+def encdec_forward_flops(cfg, seq, enc_seq):
+    """FLOPs of one forward over ``seq`` tokens and ``enc_seq`` frames:
+    the encoder (projections, full attention, MLP), the decoder
+    (projections, causal self-attention, the cross-attention's
+    projections and its full attention to the frames, MLP), the LM
+    head."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    proj = 2 * d * h * hd + 2 * d * kv * hd
+    mlp = 2.0 * 3 * d * cfg.d_ff
+    enc = cfg.n_enc_layers * (enc_seq * (2.0 * proj + mlp)
+                              + 4.0 * h * enc_seq * enc_seq * hd)
+    n_dec = cfg.n_layers - cfg.n_enc_layers
+    dec = n_dec * (seq * (2.0 * proj + mlp) + 4.0 * h * (seq * (seq + 1) / 2)
+                   * hd + 2.0 * (seq * 2 * d * h * hd + enc_seq * 2 * d * kv
+                                 * hd) + 4.0 * h * seq * enc_seq * hd)
+    return enc + dec + 2.0 * seq * d * cfg.vocab_size
+
+
+def encdec_phase(device):
+    """The encoder-decoder on the card at full size (``seamless-m4t-
+    large-v2``, 24 + 24 layers, bf16, random weights from seed 0): one
+    prefill forward of 32,768 tokens on 32,768 frames (every attention on
+    the flash kernel: 24 encoder self-attentions and 24 cross-attentions
+    in its full mode, 24 decoder ones causal), the ``serve decode`` loop
+    (its encoder once at S 64, on the kernel), ``run_train`` steps at seq
+    1,024, and checks (1) flash vs chunked over the whole model, (2) 256
+    ``decode_step``s after ``init_cache(enc_embeds=...)`` vs one forward,
+    (3) every gradient leaf finite and nonzero, (4) tokens in range."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.launch.train import run_train
+    from repro_torch.models.model import Model
+
+    reset, counts = _reset_flash_counts, _flash_counts
+    cfg = get_config(ENCDEC_ARCH)
+    n_dec = cfg.n_layers - cfg.n_enc_layers
+    n_attn = cfg.n_enc_layers + 2 * n_dec
+    out = dict(arch=ENCDEC_ARCH, source=ENCDEC_SOURCE,
+               encoder_layers=cfg.n_enc_layers, decoder_layers=n_dec,
+               dtype=cfg.param_dtype,
+               reduced=dict(train_seq=[4096, ENCDEC_TRAIN["seq"]]))
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=device).manual_seed(5)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device,
+                  generator=torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    out.update(build_s=time.perf_counter() - t0, param_count=sum(
+        p.numel() for p in model.parameters()), param_bytes=param_bytes)
+
+    def frames(b, s):
+        return (torch.randn((b, s, cfg.d_model), generator=gen,
+                            device=device) * 0.02).to(torch.bfloat16)
+
+    # ---- prefill: the main path, counts at 0 just before
+    s = ENCDEC_PREFILL_S
+    prefill = build_prefill_step(model)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, s))).to(device),
+        "enc_embeds": frames(1, s)}
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    logits = prefill(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    check(launches == dict(flash_kernel=n_attn, route_flash=n_attn,
+                           route_chunked=0),
+          f"encdec prefill: {launches}, want the flash kernel in all "
+          f"{n_attn} attentions and no chunked route")
+    check(tuple(logits.shape) == (1, s, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"encdec prefill: logits {tuple(logits.shape)} or not finite")
+    peak = torch.cuda.max_memory_allocated(device)
+    del logits
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(batch)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    by_kernel, n_ops = device_ms_by_kernel(lambda: prefill(batch))
+    dev_ms = sum(by_kernel.values())
+    families = {}
+    for name, ms in by_kernel.items():
+        fam = _kernel_family(name)
+        families[fam] = families.get(fam, 0.0) + ms
+    flops = encdec_forward_flops(cfg, s, s)
+    moved = param_bytes + s * cfg.vocab_size * 2
+    bound_s = max(flops / PEAK_FLOPS["bfloat16"], moved / HBM_BYTES_PER_S)
+    out["prefill"] = dict(
+        batch=1, seq=s, enc_seq=s, launches=launches, wall_s=wall,
+        wall_s_repeat=wall2, tokens_per_s=s / min(wall, wall2), flops=flops,
+        bytes=moved, bound_s=bound_s,
+        share_of_bound=bound_s / min(wall, wall2), device_ms=dev_ms,
+        device_ops=n_ops, flash_device_ms=families.get("flash_attention (hand kernel)", 0.0),
+        device_ms_by_family=families,
+        top_kernels_ms=dict(list(by_kernel.items())[:8]),
+        max_memory_allocated_bytes=peak)
+    del batch
+
+    # ---- decode: the serve decode loop, counts at 0 just before
+    b, pl_, g = ENCDEC_DECODE
+    prompts, enc = serve.make_inputs(cfg.vocab_size, b, pl_, cfg.d_model)
+    prompts, enc = torch.from_numpy(prompts).to(device), enc.to(device)
+    reset()
+    res = serve.run_decode(model, prompts, g, enc)
+    dec_launches = counts()
+    tokens = res["tokens"]
+    # check (4)
+    check(tokens.shape == (b, g) and ((tokens >= 0) &
+                                      (tokens < cfg.vocab_size)).all(),
+          f"encdec decode: generated tokens {tokens.shape} out of range")
+    check(dec_launches == dict(flash_kernel=cfg.n_enc_layers,
+                               route_flash=cfg.n_enc_layers,
+                               route_chunked=0),
+          f"encdec decode: {dec_launches}; want the encoder's "
+          f"{cfg.n_enc_layers} self-attentions at S {pl_} on the kernel "
+          f"and nothing else")
+    step = build_serve_step(model)
+    with torch.inference_mode():
+        cache = model.init_cache(b, pl_ + g + 1, enc_embeds=enc)
+        tok = prompts[:, :1]
+        step_kernels, step_ops = device_ms_by_kernel(
+            lambda: step(cache, tok, pl_ + g))
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for c in cache for t in c.values())
+        del cache
+    enc_bytes = sum(p.numel() * p.element_size()
+                    for p in model.enc.parameters()) + \
+        model.enc_ln.numel() * model.enc_ln.element_size()
+    emb = model.embed.element_size()
+    read = param_bytes - enc_bytes - model.embed.numel() * emb + \
+        b * cfg.d_model * emb + cache_bytes
+    step_ms = res["decode_s"] / g * 1e3
+    step_dev = sum(step_kernels.values())
+    out["decode"] = dict(
+        batch=b, prompt=pl_, gen=g, launches=dec_launches,
+        encode_s=res["encode_s"], prefill_by_steps_s=res["prefill_s"],
+        decode_s=res["decode_s"], ms_per_step=step_ms,
+        tokens_per_s=b * g / res["decode_s"], bytes_per_step=read, bound_ms_per_step=read / HBM_BYTES_PER_S * 1e3,
+        share_of_bound=read / HBM_BYTES_PER_S * 1e3 / step_ms,
+        device_ops_per_step=step_ops, device_ms_per_step=step_dev,
+        device_idle_share=1.0 - step_dev / step_ms,
+        first_generated=tokens[:2, :8].tolist())
+
+    # ---- check (1): the flash route against the chunked route, all
+    # layers, S 4,096 tokens on 4,096 frames
+    cs = ENCDEC_ROUTES_S
+    cb = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                  (1, cs))).to(device),
+          "enc_embeds": frames(1, cs)}
+    with torch.inference_mode():
+        reset()
+        lf = model(cb["tokens"], cb["enc_embeds"])
+        flash_counts = counts()
+        reset()
+        lc = model(cb["tokens"], cb["enc_embeds"], force_chunked=True)
+        chunked_counts = counts()
+    check(flash_counts == dict(flash_kernel=n_attn, route_flash=n_attn,
+                               route_chunked=0)
+          and chunked_counts == dict(flash_kernel=0, route_flash=0,
+                                     route_chunked=n_attn),
+          f"encdec routes check: flash run {flash_counts}, chunked run "
+          f"{chunked_counts}")
+    out["check_routes"] = dict(seq=cs, enc_seq=cs, **_logits_check(
+        lf, lc, "encdec flash vs chunked"))
+    del lf, lc, cb
+
+    # ---- check (2): decode_step after init_cache(enc_embeds) against
+    # one forward
+    ds = ENCDEC_DECODE_CHECK_S
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, ds))
+                            ).to(device)
+    enc = frames(1, ds)
+    fwd = prefill({"tokens": toks, "enc_embeds": enc})
+    dec = _decode_all(model, toks, enc)
+    out["check_decode"] = dict(seq=ds, enc_seq=ds, **_logits_check(
+        dec, fwd, "encdec decode_step vs forward"))
+    del fwd, dec, model, prefill, step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- training through run_train, full depth, then check (3)
+    tr = ENCDEC_TRAIN
+    lines = []
+    torch.cuda.reset_peak_memory_stats(device)
+    reset()
+    t0 = time.perf_counter()
+    res = run_train(cfg, steps=tr["steps"], batch=tr["batch"],
+                    seq=tr["seq"], device=device, log_every=1,
+                    log=lines.append)
+    torch.cuda.synchronize()
+    train_launches = counts()
+    losses = res["losses"]
+    check(len(losses) == tr["steps"] and all(map(math.isfinite, losses)),
+          f"encdec train: losses {losses}")
+    check(train_launches["flash_kernel"] == 0
+          and train_launches["route_flash"] == 0,
+          f"encdec train: {train_launches}; training must not run the "
+          f"forward-only flash kernel")
+    tmodel = res["model"]
+    n_params = sum(p.numel() for p in tmodel.parameters())
+    step_s = res["step_s"][tr["warmup"]:]
+    mean_s = sum(step_s) / len(step_s)
+    tflops = 3.0 * tr["batch"] * encdec_forward_flops(cfg, tr["seq"],
+                                                      tr["seq"])
+    t_bound_s = tflops / PEAK_FLOPS["bfloat16"] + \
+        OPT_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S
+    train_peak = torch.cuda.max_memory_allocated(device)
+    batch = {k: torch.from_numpy(v[:1, :ENCDEC_GRAD_S]).to(device)
+             for k, v in res["data"].batch_at(tr["steps"]).items()}
+    check(set(batch) == {"tokens", "labels", "enc_embeds"},
+          f"encdec train: the pipeline's batch holds {sorted(batch)}")
+    _, grads = steps_lib.loss_and_grads(tmodel, batch)
+    bad = [n for n, gr in grads.items()
+           if not (bool(torch.isfinite(gr).all()) and
+                   float(gr.abs().max()) > 0)]
+    check(not bad and len(grads) == len(list(tmodel.parameters())),
+          f"encdec train: no nonzero finite gradient for {bad}")
+    out["train"] = dict(
+        layers=cfg.n_layers, seq=tr["seq"], batch=tr["batch"],
+        steps=tr["steps"], warmup_steps=tr["warmup"], remat=cfg.remat,
+        param_count=n_params, wall_s=time.perf_counter() - t0,
+        losses=losses, lines=lines, step_s=res["step_s"],
+        ms_per_step=mean_s * 1e3,
+        tokens_per_s=tr["batch"] * tr["seq"] / mean_s, model_flops=tflops,
+        bound_ms=t_bound_s * 1e3, share_of_bound=t_bound_s / mean_s,
+        bound_convention="3 x forward FLOPs at 989 TFLOP/s, plus the "
+        "optimizer's 22 bytes a parameter at 3.35 TB/s",
+        max_memory_allocated_bytes=train_peak, launches=train_launches,
+        check_grads=dict(leaves=len(grads), tokens=ENCDEC_GRAD_S,
+                         encoder_leaves=sum(1 for n in grads
+                                            if n.startswith("enc")),
+                         ok=True))
+    out["launches"] = dict(prefill=launches, decode=dec_launches,
+                           train=train_launches)
+    del grads, res, tmodel, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["card"] = card_line()
+    return out
+
+
 # --------------------------------------------------------------- main path
 
 
@@ -1853,19 +2653,47 @@ def workload_cases(device):
     return bsr, flash
 
 
-def lm_flash_case(device):
-    """The flash kernel at the LM prefill's attention shape: one sequence of
-    32,768, ``mistral-nemo-12b``'s 32 query heads of 128, causal, bf16."""
+#: the flash kernel at each attention shape a model path gives it: (path,
+#: B, H, S, hd, causal) — mistral-nemo's 32 query heads of 128 (every
+#: layer), arctic's 56 of 128 (every layer), seamless's prefill at 16 of
+#: 64 in the kernel's full mode (its encoder's self-attention and its
+#: cross-attention) and causal (its decoder's self-attention), and the
+#: encoder of seamless's decode loop at S 64, shorter than one 128-row
+#: tile
+MODEL_FLASH_SHAPES = (("lm_prefill", 1, 32, LM_PREFILL_S, 128, True),
+                      ("arctic", 1, 56, 32_768, 128, True),
+                      ("seamless", 1, 16, ENCDEC_PREFILL_S, 64, False),
+                      ("seamless", 1, 16, ENCDEC_PREFILL_S, 64, True),
+                      ("seamless_decode", ENCDEC_DECODE[0], 16,
+                       ENCDEC_DECODE[1], 64, False))
+#: the divisibility tiles the model's attention passes the kernel
+#: (``S_MULTIPLE``, so S 64 is accepted); its own tile is ``flash_plan``'s
+MODEL_TILES = dict(bq=64, bk=64)
+#: up to this S a model shape is held against the plain version; above
+#: it, whose Python loop over (S / 128)² tile pairs is too slow, against
+#: the model's chunked route
+PLAIN_MAX_S = 4096
+
+
+def model_flash_cases(device):
+    """The flash kernel's inputs at the model paths' attention shapes
+    (``MODEL_FLASH_SHAPES``), bf16, from a seed."""
     import torch
     from repro_torch.kernels.flash_attention import flash_plan
     gen = torch.Generator(device=device).manual_seed(3)
-    b, h, s, hd = 1, 32, LM_PREFILL_S, 128
-    qkv = tuple((torch.randn((b, h, s, hd), generator=gen, device=device)
-                 * sc).to(torch.bfloat16) for sc in (0.3, 0.3, 1.0))
-    plan = flash_plan(torch.bfloat16, s, hd)
-    return dict(name=f"lm_B{b}_H{h}_S{s}_hd{hd}_causal", causal=True, B=b,
-                H=h, S=s, hd=hd, dtype="bfloat16", kernel_route=plan.route,
-                tile=plan.tile, args=qkv, main_path="lm_prefill")
+    cases = []
+    for path, b, h, s, hd, causal in MODEL_FLASH_SHAPES:
+        qkv = tuple((torch.randn((b, h, s, hd), generator=gen, device=device)
+                     * sc).to(torch.bfloat16) for sc in (0.3, 0.3, 1.0))
+        plan = flash_plan(torch.bfloat16, s, hd)
+        mode = "causal" if causal else "full"
+        cases.append(dict(name=f"{path}_B{b}_H{h}_S{s}_hd{hd}_{mode}",
+                          causal=causal, B=b, H=h, S=s, hd=hd,
+                          dtype="bfloat16", kernel_route=plan.route,
+                          tile=plan.tile, args=qkv, main_path=path,
+                          against="plain" if s <= PLAIN_MAX_S else
+                          "chunked"))
+    return cases
 
 
 def kernel_path(bsr_cases, flash_cases):
@@ -2165,7 +2993,7 @@ def bsr_checks(device, bsr_cases):
     return results
 
 
-def flash_checks(device, flash_cases, lm_case):
+def flash_checks(device, flash_cases, model_cases):
     import numpy as np
     import torch
     from repro_torch.models.attention import attention
@@ -2230,21 +3058,40 @@ def flash_checks(device, flash_cases, lm_case):
         results.append(dict(case=c["name"], dtype=c["dtype"],
                             max_abs_err=c["max_abs_err"], rtol=RTOL_BF16,
                             atol=c["atol"], err_over_tol=c["err_over_tol"]))
-    # the LM shape: the plain version's Python loop over 32,896 tile pairs
-    # is skipped; the model's chunked route (fp32 scores and softmax) is
-    # the PyTorch version held against the kernel there, row by row
-    c = lm_case
-    o = flash_attention(*c["args"], causal=True)
-    q, k, v = (t.transpose(1, 2) for t in c["args"])
-    ref = attention(q, k, v, causal=True, chunk=1024, force_chunked=True)
-    c["max_abs_err"], c["err_over_tol"] = _row_scaled_check(
-        o, ref.transpose(1, 2), c["name"], "the chunked route")
-    c["rtol"], c["atol"] = RTOL_BF16, f"{ATOL_RMS}*rms(row)"
-    results.append(dict(case=c["name"], dtype=c["dtype"],
-                        against="the model's chunked route",
-                        max_abs_err=c["max_abs_err"], rtol=RTOL_BF16,
-                        atol=c["atol"], err_over_tol=c["err_over_tol"]))
-    del o, ref
+    # the model shapes: up to PLAIN_MAX_S against the plain version (and
+    # the fp32 result); above it the plain version's Python loop over
+    # (S / 128)² tile pairs is skipped and the model's chunked route (fp32
+    # scores and softmax) is the PyTorch version held against the kernel,
+    # row by row
+    for c in model_cases:
+        o = flash_attention(*c["args"], causal=c["causal"], **MODEL_TILES)
+        if c["against"] == "plain":
+            a = c["args"]
+            op = flash_attention_plain(*a, causal=c["causal"])
+            o32 = flash_attention_plain(*(t.float() for t in a),
+                                        causal=c["causal"])
+            _scaled_check(o, o32, c["name"], "the fp32 result")
+            c["max_abs_err"], c["atol"], c["err_over_tol"] = _scaled_check(
+                o, op, c["name"], "plain")
+            c["rtol"] = RTOL_BF16
+            results.append(dict(case=c["name"], dtype=c["dtype"],
+                                against="the plain version",
+                                max_abs_err=c["max_abs_err"], rtol=RTOL_BF16,
+                                atol=c["atol"],
+                                err_over_tol=c["err_over_tol"]))
+            del o, op, o32
+            continue
+        q, k, v = (t.transpose(1, 2) for t in c["args"])
+        ref = attention(q, k, v, causal=c["causal"], chunk=1024,
+                        force_chunked=True)
+        c["max_abs_err"], c["err_over_tol"] = _row_scaled_check(
+            o, ref.transpose(1, 2), c["name"], "the chunked route")
+        c["rtol"], c["atol"] = RTOL_BF16, f"{ATOL_RMS}*rms(row)"
+        results.append(dict(case=c["name"], dtype=c["dtype"],
+                            against="the model's chunked route",
+                            max_abs_err=c["max_abs_err"], rtol=RTOL_BF16,
+                            atol=c["atol"], err_over_tol=c["err_over_tol"]))
+        del o, ref
     return results
 
 
@@ -2271,7 +3118,7 @@ def flash_bound(c):
             "operations" if t_ops >= t_bytes else "bytes", flops, moved)
 
 
-def kernel_timings(device, bsr_cases, flash_cases, lm_case):
+def kernel_timings(device, bsr_cases, flash_cases, model_cases):
     """Device times at the workload shapes: kernel, plain version, one
     library call (a yardstick only: the package never calls it), and the
     bound computed from this run's inputs."""
@@ -2310,20 +3157,30 @@ def kernel_timings(device, bsr_cases, flash_cases, lm_case):
             flush)
         c["bound_ms"], c["bound_by"], c["flops"], c["bytes"] = flash_bound(c)
     from repro_torch.models.attention import attention
-    c = lm_case
-    a = c["args"]
-    c["ms"] = time_ms(lambda: flash_attention(*a, causal=True), 5, flush)
-    c["plain_ms"] = None
-    c["plain_note"] = ("plain version skipped at this size (a Python loop "
-                       "over 32,896 tile pairs); chunked_ms is the model's "
-                       "chunked route")
-    qt, kt, vt = (t.transpose(1, 2) for t in a)
-    c["chunked_ms"] = time_ms(lambda: attention(
-        qt, kt, vt, causal=True, chunk=1024, force_chunked=True), 1, flush)
-    c["graph_ms"] = graph_ms(lambda: flash_attention(*a, causal=True), 5)
-    c["library_ms"] = time_ms(
-        lambda: F.scaled_dot_product_attention(*a, is_causal=True), 5, flush)
-    c["bound_ms"], c["bound_by"], c["flops"], c["bytes"] = flash_bound(c)
+    for c in model_cases:
+        a, causal = c["args"], c["causal"]
+        c["ms"] = time_ms(
+            lambda: flash_attention(*a, causal=causal, **MODEL_TILES), 5,
+            flush)
+        if c["against"] == "plain":
+            c["plain_ms"] = time_ms(
+                lambda: flash_attention_plain(*a, causal=causal), 1, flush)
+        else:
+            c["plain_ms"] = None
+            c["plain_note"] = ("plain version skipped at this size (a "
+                               "Python loop over (S/128)^2 tile pairs); "
+                               "chunked_ms is the model's chunked route")
+        qt, kt, vt = (t.transpose(1, 2) for t in a)
+        c["chunked_ms"] = time_ms(lambda: attention(
+            qt, kt, vt, causal=causal, chunk=1024, force_chunked=True), 1,
+            flush)
+        c["graph_ms"] = graph_ms(
+            lambda: flash_attention(*a, causal=causal, **MODEL_TILES), 5)
+        c["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(*a, is_causal=causal), 5,
+            flush)
+        c["bound_ms"], c["bound_by"], c["flops"], c["bytes"] = \
+            flash_bound(c)
 
 
 def _case_row(c):
@@ -2340,13 +3197,14 @@ def _case_row(c):
     return row
 
 
-def kernel_table(bsr_cases, flash_cases, lm_case, launches):
+def kernel_table(bsr_cases, flash_cases, model_cases, launches):
     """One entry per kernel; the headline numbers are those of its
     largest kernel-path shape, every shape is under ``cases``.
     ``launches`` sums the main paths' counts, ``launches_by_path`` holds
-    each (``lm_prefill``: one forward of the LM; ``tables``, ``train``,
-    ``xlstm`` and ``zamba2``: those phases and paths, which reach no
-    kernel)."""
+    each (``lm_prefill``, ``arctic``, ``kimi``, ``seamless``: one prefill
+    forward of that model; ``seamless_decode``: its decode loop, whose
+    encoder runs once; ``tables``, ``train``, ``xlstm``, ``zamba2`` and
+    ``*_train``: those phases and paths, which reach no kernel)."""
     def entry(name, source, replaces, cases, head):
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -2354,7 +3212,8 @@ def kernel_table(bsr_cases, flash_cases, lm_case, launches):
             launches=sum(launches[name].values()),
             launches_by_path=launches[name], shape=head["name"],
             max_abs_err=max(c["max_abs_err"] for c in cases),
-            tol=f"{ATOL_RMS}*rms + {RTOL_BF16}*|x| (lm case: rms per row)",
+            tol=f"{ATOL_RMS}*rms + {RTOL_BF16}*|x| (model shapes: rms per "
+            f"row)",
             err_over_tol=max(c["err_over_tol"] for c in cases),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
@@ -2366,7 +3225,7 @@ def kernel_table(bsr_cases, flash_cases, lm_case, launches):
         entry("flash_attention",
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:87",
-              flash_cases + [lm_case], flash_cases[0]),
+              flash_cases + model_cases, flash_cases[0]),
     ]
 
 
@@ -2427,6 +3286,7 @@ def main(argv=None) -> int:
     for name, phase in (("fleet", fleet_phase), ("tables", tables_phase),
                         ("serve", serve_phase), ("lm", lm_phase),
                         ("train", train_phase), ("ssm", ssm_phase),
+                        ("moe", moe_phase), ("encdec", encdec_phase),
                         ("evaluator", evaluator_phase)):
         t0 = time.perf_counter()
         bsr_spmm.launches = 0
@@ -2448,26 +3308,38 @@ def main(argv=None) -> int:
               f"{name}: kernel launches {report[name]['kernel_launches']}")
 
     t0 = time.perf_counter()
-    lm_case = lm_flash_case(device)
+    model_cases = model_flash_cases(device)
     checks = dict(bsr_spmm=bsr_checks(device, bsr_cases),
-                  flash_attention=flash_checks(device, flash_cases, lm_case))
-    kernel_timings(device, bsr_cases, flash_cases, lm_case)
+                  flash_attention=flash_checks(device, flash_cases,
+                                               model_cases))
+    kernel_timings(device, bsr_cases, flash_cases, model_cases)
     torch.cuda.synchronize()
     ssm_runs = report["ssm"]["archs"]
+    moe_runs = report["moe"]["runs"]
+    encdec = report["encdec"]["launches"]
     by_path = dict(
         bsr_spmm=dict(kernel_path=launches["bsr_spmm"],
                       tables=report["tables"]["kernel_launches"]["bsr_spmm"],
                       train=report["train"]["kernel_launches"]["bsr_spmm"],
                       **{a.split("-")[0]: r["launches"]["bsr_spmm"]
-                         for a, r in ssm_runs.items()}),
+                         for a, r in ssm_runs.items()},
+                      moe=report["moe"]["kernel_launches"]["bsr_spmm"],
+                      encdec=report["encdec"]["kernel_launches"]["bsr_spmm"]),
         flash_attention=dict(
             kernel_path=launches["flash_attention"],
             lm_prefill=report["lm"]["prefill"]["launches"]["flash_kernel"],
             tables=report["tables"]["kernel_launches"]["flash_attention"],
             train=report["train"]["launches"]["flash_kernel"],
             **{a.split("-")[0]: r["launches"]["flash_attention"]
-               for a, r in ssm_runs.items()}))
-    table = kernel_table(bsr_cases, flash_cases, lm_case, by_path)
+               for a, r in ssm_runs.items()},
+            **{a.split("-")[0]: r["launches"]["prefill"]["flash_kernel"]
+               for a, r in moe_runs.items()},
+            arctic_train=moe_runs["arctic-480b"]["launches"]["train"][
+                "flash_kernel"],
+            seamless=encdec["prefill"]["flash_kernel"],
+            seamless_decode=encdec["decode"]["flash_kernel"],
+            seamless_train=encdec["train"]["flash_kernel"]))
+    table = kernel_table(bsr_cases, flash_cases, model_cases, by_path)
     report["kernels"] = dict(
         phase="kernels", checks_passed={k: len(v) for k, v in checks.items()},
         checks=checks, kernels=table, seconds=time.perf_counter() - t0)

@@ -5,10 +5,13 @@ Two modes, dispatched on the first argument:
 * ``decode`` — the batched LLM serving driver: prefill + greedy decode
   loop with KV cache (or recurrent state) over synthetic prompts;
   reports tokens/s and validates the cache path end to end.  The block
-  kinds of ``models.model.KINDS`` (the dense decoders, xLSTM, zamba2's Mamba-2
-  with its shared attention): an arch that needs another block kind,
-  an encoder, a frontend or M-RoPE exits non-zero naming the ROADMAP
-  Queue 1 item that brings it (``Model.unported``).
+  kinds of ``models.model.KINDS`` (the dense decoders, the MoE ones,
+  xLSTM, zamba2's Mamba-2 with its shared attention, the
+  encoder-decoder): an encoder-decoder's encoder runs once on synthetic
+  frame embeddings drawn after the prompts, as the reference draws them,
+  and fills the cross-attention caches.  An arch that needs the vision
+  frontend or M-RoPE exits non-zero naming the ROADMAP Queue 1 item
+  that brings it (``Model.unported``).
 
       PYTHONPATH=src python -m repro_torch.launch.serve decode \\
           --arch mistral-nemo-12b --batch 4 --prompt-len 64 --gen 32
@@ -16,6 +19,8 @@ Two modes, dispatched on the first argument:
           --arch zamba2-2.7b
       PYTHONPATH=src python -m repro_torch.launch.serve decode \\
           --arch gemma3-12b --smoke --device cpu
+      PYTHONPATH=src python -m repro_torch.launch.serve decode \\
+          --arch seamless-m4t-large-v2 --smoke --device cpu
 
 * ``sweep`` — the persistent sweep server
   (:mod:`repro_torch.launch.sweep_serve`): accepts streaming (workload,
@@ -35,6 +40,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -47,7 +53,7 @@ usage: python -m repro_torch.launch.serve <mode> [mode options]
 modes:
   decode   batched LLM serving driver (prefill + greedy decode loop);
            options: --arch --smoke --batch --prompt-len --gen --device;
-           no MoE, encoder-decoder or multimodal arch yet
+           no vision (M-RoPE) arch yet
   sweep    persistent accelerator-search sweep server (query coalescing,
            checkpointed populations, crash recovery); options: --host
            --port --checkpoint-dir --checkpoint-every --max-restarts
@@ -71,29 +77,49 @@ def main(argv=None):
     return decode_main(argv)        # bare flags mean decode
 
 
-def make_prompts(vocab_size: int, batch: int, prompt_len: int
-                 ) -> np.ndarray:
-    """The synthetic prompts [batch, prompt_len], the JAX package's
-    (``np.random.default_rng(0)``)."""
+def make_inputs(vocab_size: int, batch: int, prompt_len: int,
+                d_model: int = 0):
+    """``(prompts, enc_embeds)``: the synthetic prompts [batch,
+    prompt_len] from ``np.random.default_rng(0)``, and, with a
+    ``d_model``, an encoder's input [batch, prompt_len, d_model] drawn
+    next from the same generator, rounded to bf16 and scaled by bf16's
+    0.02 (``None`` without), as the reference's CLI draws both."""
     rng = np.random.default_rng(0)
-    return rng.integers(0, vocab_size, (batch, prompt_len))
+    prompts = rng.integers(0, vocab_size, (batch, prompt_len))
+    if not d_model:
+        return prompts, None
+    enc = torch.from_numpy(rng.standard_normal((batch, prompt_len,
+                                                d_model))).to(torch.bfloat16)
+    return prompts, enc * torch.tensor(0.02, dtype=torch.bfloat16)
 
 
 @torch.inference_mode()
-def run_decode(model, prompts: torch.Tensor, gen: int) -> dict:
+def run_decode(model, prompts: torch.Tensor, gen: int,
+               enc_embeds: Optional[torch.Tensor] = None) -> dict:
     """Step the prompts [B, P] through ``decode_step`` token by token
     (prefill), then decode ``gen`` tokens greedily, as the reference's
-    loop does.  Returns the generated tokens [B, gen] (numpy) and the
-    host seconds of both loops, each ended by a synchronise."""
+    loop does; ``enc_embeds`` [B, S_enc, d] runs an encoder-decoder's
+    encoder once, into the cache, first.  Returns the generated tokens
+    [B, gen] (numpy), the host seconds of both loops and those of the
+    encoder's run (``encode_s``, ``None`` without ``enc_embeds``), each
+    ended by a synchronise; the cache's making is in none of them."""
     from .steps import build_serve_step
     b, pl_ = prompts.shape
-    cache = model.init_cache(b, pl_ + gen + 1)
-    step = build_serve_step(model)
     dev = prompts.device
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+    cache = model.init_cache(b, pl_ + gen + 1)
+    step = build_serve_step(model)
+    encode_s = None
+    if enc_embeds is not None:
+        sync()
+        t0 = time.perf_counter()
+        model.encode_into(cache, enc_embeds)
+        sync()
+        encode_s = time.perf_counter() - t0
 
     sync()
     t0 = time.perf_counter()
@@ -113,7 +139,8 @@ def run_decode(model, prompts: torch.Tensor, gen: int) -> dict:
         out_tokens.append(tok)
     tokens = torch.cat(out_tokens, dim=1).cpu().numpy()
     decode_s = time.perf_counter() - t0
-    return dict(tokens=tokens, prefill_s=prefill_s, decode_s=decode_s)
+    return dict(tokens=tokens, prefill_s=prefill_s, decode_s=decode_s,
+                encode_s=encode_s)
 
 
 def decode_main(argv=None):
@@ -149,9 +176,10 @@ def decode_main(argv=None):
     model = Model(cfg, device=device,
                   generator=torch.Generator(device=device).manual_seed(0))
     b, pl_, g = args.batch, args.prompt_len, args.gen
-    prompts = torch.from_numpy(make_prompts(cfg.vocab_size, b, pl_)).to(
-        device)
-    res = run_decode(model, prompts, g)
+    prompts, enc = make_inputs(cfg.vocab_size, b, pl_,
+                               cfg.d_model if cfg.n_enc_layers else 0)
+    res = run_decode(model, torch.from_numpy(prompts).to(device), g,
+                     None if enc is None else enc.to(device))
     gen = res["tokens"]
 
     print(f"arch={cfg.name} batch={b} prompt={pl_} gen={g} device={device}")

@@ -85,11 +85,12 @@ def build_serve_step(model: Model) -> Callable:
 
 
 def build_prefill_step(model: Model) -> Callable:
-    """Prefill is the forward pass: batch ``{"tokens": [B,S]}`` -> logits
-    over the whole prompt [B,S,V]."""
+    """Prefill is the forward pass: batch ``{"tokens": [B,S]}`` (and an
+    encoder-decoder's ``"enc_embeds"`` [B,S_enc,d]) -> logits over the
+    whole prompt [B,S,V]."""
 
     @torch.inference_mode()
     def prefill_step(batch):
-        return model(batch["tokens"])
+        return model(batch["tokens"], batch.get("enc_embeds"))
 
     return prefill_step

@@ -10,11 +10,13 @@ Composes the deterministic, seekable synthetic data pipeline, the model
 checkpoint/restart through the crash-safe ``Supervisor``, and the
 step-time straggler monitor.  The flags and printed lines are the
 reference's, plus ``--device`` (default: the GPU, failing where there is
-none); the default arch is the reference's, ``xlstm-350m``.  Refused,
-with exit code 2 and the reason on stderr, before anything is built: an
-arch whose blocks are not ported (``moe``, ROADMAP Queue 1 item 4, say),
-a ``--mesh`` other than ``1`` or ``1x1`` (sharding, item 8), and a
-missing device.
+none); the default arch is the reference's, ``xlstm-350m``.  Every key of
+a pipeline's batch goes to the device and into ``Model.loss_fn`` (an
+encoder-decoder's ``enc_embeds`` too), whose total carries the MoE
+blocks' balance loss.  Refused, with exit code 2 and the reason on
+stderr, before anything is built: an arch that needs what is not ported
+(the vision frontend and M-RoPE, ROADMAP Queue 1 item 7), a ``--mesh``
+other than ``1`` or ``1x1`` (sharding, item 8), and a missing device.
 
 :func:`run_train` is the loop itself, for a caller that holds a
 :class:`~repro_torch.models.config.ModelConfig` (a depth-reduced one, say).

@@ -6,10 +6,11 @@ KV cache.
 :func:`attention_route` from shape, dtype, mask and autograd state (never
 from the device):
 
-* ``"flash"`` — plain causal self-attention whose shape the hand-written
-  kernel takes (:mod:`repro_torch.kernels.flash_attention`): K and V are
-  repeated to every query head, the operands go to the kernel as
-  contiguous ``[B, H, S, hd]``.  On CUDA tensors the kernel is launched or
+* ``"flash"`` — self-attention, causal or not (an encoder's; a
+  cross-attention whose query and key lengths are equal), whose shape the
+  hand-written kernel takes (:mod:`repro_torch.kernels.flash_attention`,
+  its causal or full mode): K and V are repeated to every query head, the
+  operands go to the kernel as contiguous ``[B, H, S, hd]``.  On CUDA tensors the kernel is launched or
   the call raises; on CPU tensors the wrapper runs its plain version.
 * ``"chunked"`` — everything else (a window, an offset, ``Sq != Sk``, a
   head size or length the kernel does not take, or an input that needs a
@@ -48,8 +49,6 @@ def attention_route(q: torch.Tensor, k: torch.Tensor, causal: bool,
     [B,Sk,KV,hd] under the current autograd state."""
     sq, hd = q.shape[1], q.shape[3]
     sk = k.shape[1]
-    if not causal:
-        return "chunked", "not causal"
     if window is not None:
         return "chunked", f"sliding window {window}"
     if q_offset != 0:
@@ -66,6 +65,9 @@ def attention_route(q: torch.Tensor, k: torch.Tensor, causal: bool,
     if flash_lib.needs_grad(q, k, v):
         return "chunked", ("an input needs a gradient and the kernel has "
                            "no backward (nor has the reference's)")
+    if not causal:
+        return "flash", ("not causal, Sq == Sk in the kernel's shapes: its "
+                         "full mode")
     return "flash", "causal self-attention in the kernel's shapes"
 
 
@@ -89,7 +91,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qt = q.transpose(1, 2).contiguous()
         kt = k.transpose(1, 2).repeat_interleave(n_rep, dim=1)
         vt = v.transpose(1, 2).repeat_interleave(n_rep, dim=1)
-        o = flash_lib.flash_attention(qt, kt, vt, causal=True,
+        o = flash_lib.flash_attention(qt, kt, vt, causal=causal,
                                       bq=flash_lib.S_MULTIPLE,
                                       bk=flash_lib.S_MULTIPLE)
         return o.transpose(1, 2)

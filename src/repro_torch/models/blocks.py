@@ -1,13 +1,16 @@
 """The block kinds of the LM substrate, the counterparts of the JAX
 package's ``build_*`` / ``train_*`` / ``cache_init_*`` / ``decode_*``
 (``models/blocks.py``): the attention block (``attn`` / ``attn_local``,
-without cross-attention), Mamba-2 (``mamba2``) and the xLSTM's ``mlstm``
-and ``slstm``.
+and ``attn_cross`` with cross-attention to an encoder's output), the
+attention + mixture-of-experts block (``moe``), Mamba-2 (``mamba2``) and
+the xLSTM's ``mlstm`` and ``slstm``.
 
 Each block is an ``nn.Module`` with ``forward(x, off, force_chunked)``,
 ``init_cache(batch, max_len)`` and ``decode(cache, x_t, pos)``; ``decode``
 updates ``cache`` (a dict) in place or replaces its entries, as the
-reference's returned cache would have them.  Weights keep the reference's
+reference's returned cache would have them.  Every ``forward`` returns
+``(x, aux)``: ``aux`` is ``MoeBlock``'s balance loss, an fp32 scalar,
+and an fp32 zero for the other kinds.  Weights keep the reference's
 ``[d_in, d_out]`` layout and are applied as ``x @ w`` (no ``nn.Linear``),
 so a JAX parameter tree copies over leaf for leaf
 (:mod:`repro_torch.models.convert`).  They are built on the generator's
@@ -18,13 +21,14 @@ model is made trainable.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from . import attention as attn_lib
+from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .config import ModelConfig
 from .layers import _init_dense, apply_rope, dtype_of, mlp, rms_norm
@@ -39,12 +43,22 @@ def _ones(cfg: ModelConfig, gen: torch.Generator) -> nn.Parameter:
                              device=gen.device))
 
 
-def _randn(gen: torch.Generator, shape, std: float,
-           dtype: torch.dtype) -> nn.Parameter:
+def _draw(gen: torch.Generator, shape, std: float,
+          dtype: torch.dtype) -> torch.Tensor:
     """``normal * std`` drawn in fp32 on ``gen``'s device, cast."""
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return _param(w.mul_(std).to(dtype))
+    return w.mul_(std).to(dtype)
+
+
+def _no_aux(x: torch.Tensor) -> torch.Tensor:
+    """The balance loss of a block that has none: an fp32 zero."""
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _randn(gen: torch.Generator, shape, std: float,
+           dtype: torch.dtype) -> nn.Parameter:
+    return _param(_draw(gen, shape, std, dtype))
 
 
 class _AttnParams(nn.Module):
@@ -78,23 +92,59 @@ class _MlpParams(nn.Module):
 
 
 def _qkv(cfg: ModelConfig, p: _AttnParams, x: torch.Tensor,
-         positions: torch.Tensor):
+         positions: Optional[torch.Tensor] = None,
+         x_kv: Optional[torch.Tensor] = None):
+    """q from ``x``, k/v from ``x_kv`` (default ``x``); RoPE at
+    ``positions`` when they are given (self-attention only)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    xk = x if x_kv is None else x_kv
     q = (x @ p.wq).reshape(b, s, h, hd)
-    k = (x @ p.wk).reshape(b, s, kv, hd)
-    v = (x @ p.wv).reshape(b, s, kv, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    k = (xk @ p.wk).reshape(b, xk.shape[1], kv, hd)
+    v = (xk @ p.wv).reshape(b, xk.shape[1], kv, hd)
+    if positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _self_attention(cfg: ModelConfig, p: _AttnParams, x: torch.Tensor,
+                    off: int, force_chunked: bool, causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """``x`` [B,S,d] (normed) -> the attention's output projected by
+    ``wo``, with RoPE at positions ``off``..``off+S-1``."""
+    b, s, _ = x.shape
+    positions = off + torch.arange(s, device=x.device)[None, :]
+    q, k, v = _qkv(cfg, p, x, positions)
+    o = attn_lib.attention(q, k, v, causal=causal, window=window,
+                           q_offset=off, chunk=cfg.attention_chunk,
+                           force_chunked=force_chunked)
+    return o.reshape(b, s, -1) @ p.wo
+
+
+def _self_decode(cfg: ModelConfig, p: _AttnParams,
+                 cache: Dict[str, torch.Tensor], x: torch.Tensor, pos: int,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """One token ``x`` [B,1,d] (normed) against the K/V cache, its own
+    K/V written at ``pos`` first; returns the output projected by
+    ``wo``."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(cfg, p, x, positions)
+    kc, vc = attn_lib.update_cache(cache["k"], cache["v"], k, v, pos)
+    o = attn_lib.decode_attention(q, kc, vc, pos + 1, window=window)
+    return o.reshape(b, 1, -1) @ p.wo
 
 
 class AttnBlock(nn.Module):
     """Pre-RMSNorm attention + MLP with residuals; ``local`` gives the
-    sliding-window kind (``cfg.sliding_window``)."""
+    sliding-window kind (``cfg.sliding_window``), ``cross`` the
+    ``attn_cross`` kind: between the two, a pre-RMSNorm (``lnx``)
+    non-causal cross-attention (``xattn``, no RoPE) from the decoder's
+    stream to the encoder's output."""
 
-    def __init__(self, cfg: ModelConfig, local: bool = False, *,
-                 generator: torch.Generator):
+    def __init__(self, cfg: ModelConfig, local: bool = False,
+                 cross: bool = False, *, generator: torch.Generator):
         super().__init__()
         self.cfg = cfg
         self.local = local
@@ -102,43 +152,155 @@ class AttnBlock(nn.Module):
         self.attn = _AttnParams(cfg, generator)
         self.ln2 = _ones(cfg, generator)
         self.mlp = _MlpParams(cfg, generator, cfg.d_ff)
+        self.cross = cross
+        if cross:
+            self.lnx = _ones(cfg, generator)
+            self.xattn = _AttnParams(cfg, generator)
 
     @property
     def window(self):
         return self.cfg.sliding_window if self.local else None
 
     def forward(self, x: torch.Tensor, off: int = 0,
-                force_chunked: bool = False) -> torch.Tensor:
-        """x: [B,S,d] at absolute positions ``off``..``off+S-1``."""
-        b, s, _ = x.shape
-        positions = off + torch.arange(s, device=x.device)[None, :]
-        q, k, v = _qkv(self.cfg, self.attn, rms_norm(x, self.ln1), positions)
-        o = attn_lib.attention(q, k, v, causal=True, window=self.window,
-                               q_offset=off, chunk=self.cfg.attention_chunk,
-                               force_chunked=force_chunked)
-        x = x + o.reshape(b, s, -1) @ self.attn.wo
-        return x + mlp(rms_norm(x, self.ln2), self.mlp)
+                force_chunked: bool = False,
+                enc_out: Optional[torch.Tensor] = None,
+                causal: bool = True):
+        """x: [B,S,d] at absolute positions ``off``..``off+S-1`` ->
+        ``(x, 0)``;
+        ``enc_out`` [B,S_enc,d]: the encoder's output, attended to by a
+        cross block (ignored by the others); ``causal=False``: the
+        encoder's self-attention."""
+        x = x + _self_attention(self.cfg, self.attn, rms_norm(x, self.ln1),
+                                off, force_chunked, causal, self.window)
+        if enc_out is not None and self.cross:
+            b, s, _ = x.shape
+            q, k, v = _qkv(self.cfg, self.xattn, rms_norm(x, self.lnx),
+                           x_kv=enc_out)
+            o = attn_lib.attention(q, k, v, causal=False, chunk=0,
+                                   force_chunked=force_chunked)
+            x = x + o.reshape(b, s, -1) @ self.xattn.wo
+        return x + mlp(rms_norm(x, self.ln2), self.mlp), _no_aux(x)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
-        """Zeroed K/V caches [B, max_len, KV, hd] in the compute dtype."""
-        cfg = self.cfg
-        shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
-        kw = dict(dtype=dtype_of(cfg.compute_dtype), device=self.ln1.device)
-        return dict(k=torch.zeros(shape, **kw), v=torch.zeros(shape, **kw))
+        """Zeroed K/V caches [B, max_len, KV, hd] in the compute dtype (a
+        cross block's ``xk`` / ``xv`` come from ``Model.init_cache``)."""
+        return _kv_cache(self.cfg, batch, max_len, self.ln1.device)
+
+    def cross_kv(self, enc_out: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The cross-attention's K/V of ``enc_out`` [B,S_enc,d], ``xk`` /
+        ``xv`` [B,S_enc,KV,hd], projected by ``xattn`` as ``forward``
+        projects them."""
+        b, s, _ = enc_out.shape
+        shape = (b, s, self.cfg.n_kv_heads, self.cfg.hd)
+        return dict(xk=(enc_out @ self.xattn.wk).reshape(shape),
+                    xv=(enc_out @ self.xattn.wv).reshape(shape))
 
     def decode(self, cache: Dict[str, torch.Tensor], x_t: torch.Tensor,
                pos: int) -> torch.Tensor:
         """x_t: [B,1,d]; ``pos``: the cache length before this token.  The
-        token's K/V are written into ``cache`` in place."""
-        b = x_t.shape[0]
-        positions = torch.full((b, 1), pos, dtype=torch.int32,
-                               device=x_t.device)
-        q, k, v = _qkv(self.cfg, self.attn, rms_norm(x_t, self.ln1),
-                       positions)
-        kc, vc = attn_lib.update_cache(cache["k"], cache["v"], k, v, pos)
-        o = attn_lib.decode_attention(q, kc, vc, pos + 1, window=self.window)
-        x_t = x_t + o.reshape(b, 1, -1) @ self.attn.wo
+        token's K/V are written into ``cache`` in place; a cross block
+        attends to the whole of ``cache["xk"]`` / ``["xv"]`` where they
+        are."""
+        x_t = x_t + _self_decode(self.cfg, self.attn,
+                                 cache, rms_norm(x_t, self.ln1), pos,
+                                 self.window)
+        if self.cross and "xk" in cache:
+            b = x_t.shape[0]
+            cfg = self.cfg
+            q = (rms_norm(x_t, self.lnx) @ self.xattn.wq).reshape(
+                b, 1, cfg.n_heads, cfg.hd)
+            o = attn_lib.decode_attention(q, cache["xk"], cache["xv"],
+                                          cache["xk"].shape[1])
+            x_t = x_t + o.reshape(b, 1, -1) @ self.xattn.wo
         return x_t + mlp(rms_norm(x_t, self.ln2), self.mlp)
+
+
+def _kv_cache(cfg: ModelConfig, batch: int, max_len: int, device
+              ) -> Dict[str, torch.Tensor]:
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    kw = dict(dtype=dtype_of(cfg.compute_dtype), device=device)
+    return dict(k=torch.zeros(shape, **kw), v=torch.zeros(shape, **kw))
+
+
+# =========================================================== moe block
+
+
+class _MoeParams(nn.Module):
+    """The router ``wg [d, E]`` and the experts' ``w1`` / ``w3 [E, d,
+    d_ff]``, ``w2 [E, d_ff, d]`` (``moe.moe_params_shape``), each drawn
+    in fp32 with std ``1/sqrt(shape[-2])`` (``wg``: ``1/sqrt(d)``) and
+    cast, the experts one at a time: a whole ``w1`` of arctic drawn at
+    once would be a 17.8 GB fp32 temporary."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        dt = dtype_of(cfg.param_dtype)
+        for name, shape in moe_lib.moe_params_shape(
+                cfg.d_model, cfg.n_experts, cfg.moe_d_ff).items():
+            if len(shape) == 2:
+                setattr(self, name, _randn(gen, shape,
+                                           1.0 / math.sqrt(shape[0]), dt))
+                continue
+            w = torch.empty(shape, dtype=dt, device=gen.device)
+            for e in range(shape[0]):
+                w[e] = _draw(gen, shape[1:], 1.0 / math.sqrt(shape[-2]), dt)
+            setattr(self, name, _param(w))
+
+
+class MoeBlock(nn.Module):
+    """Pre-RMSNorm causal attention, then a routed mixture-of-experts FFN
+    (``moe``) and, for ``cfg.moe_dense_residual`` (arctic), a dense
+    SwiGLU FFN (``dense``) on the same normed input, added to it; both
+    with residuals.  ``forward`` takes the grouped dispatch when
+    ``cfg.moe_grouped`` (``train_moe``), ``decode`` always the flat one
+    (``decode_moe``): its capacity is ``max(1, ...)`` of the batch's
+    tokens, so at a batch of a few tokens batch-mates routed to one
+    expert are dropped, as in the reference."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = _ones(cfg, generator)
+        self.attn = _AttnParams(cfg, generator)
+        self.ln2 = _ones(cfg, generator)
+        self.moe = _MoeParams(cfg, generator)
+        if cfg.moe_dense_residual:
+            self.dense = _MlpParams(cfg, generator, cfg.d_ff)
+        else:
+            self.dense = None
+
+    def _ffn(self, h: torch.Tensor, grouped: bool):
+        cfg = self.cfg
+        w = dict(self.moe.named_parameters())
+        if grouped:
+            y, aux = moe_lib.moe_ffn_grouped(h, w, cfg.top_k,
+                                             cfg.capacity_factor,
+                                             cfg.moe_n_groups)
+        else:
+            y, aux = moe_lib.moe_ffn(h, w, cfg.top_k, cfg.capacity_factor)
+        if self.dense is not None:
+            y = y + mlp(h, self.dense)
+        return y, aux
+
+    def forward(self, x: torch.Tensor, off: int = 0,
+                force_chunked: bool = False):
+        """x: [B,S,d] -> ``(x, aux)``, the balance loss an fp32 scalar."""
+        x = x + _self_attention(self.cfg, self.attn, rms_norm(x, self.ln1),
+                                off, force_chunked)
+        y, aux = self._ffn(rms_norm(x, self.ln2), self.cfg.moe_grouped)
+        return x + y, aux
+
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
+        """Zeroed K/V caches [B, max_len, KV, hd] in the compute dtype."""
+        return _kv_cache(self.cfg, batch, max_len, self.ln1.device)
+
+    def decode(self, cache: Dict[str, torch.Tensor], x_t: torch.Tensor,
+               pos: int) -> torch.Tensor:
+        """x_t: [B,1,d]; the token's K/V are written into ``cache``."""
+        x_t = x_t + _self_decode(self.cfg, self.attn, cache,
+                                 rms_norm(x_t, self.ln1), pos)
+        y, _ = self._ffn(rms_norm(x_t, self.ln2), grouped=False)
+        return x_t + y
 
 
 # =========================================================== mamba2 block
@@ -201,8 +363,9 @@ class Mamba2Block(nn.Module):
                 zxbcdt[..., d_in + conv_dim:])
 
     def forward(self, x: torch.Tensor, off: int = 0,
-                force_chunked: bool = False) -> torch.Tensor:
-        """x: [B,S,d] with S a multiple of ``cfg.ssm_chunk``."""
+                force_chunked: bool = False):
+        """x: [B,S,d] with S a multiple of ``cfg.ssm_chunk`` ->
+        ``(x, 0)``."""
         b, s, _ = x.shape
         d_in, hdim, nh, n, _ = _mamba_dims(self.cfg)
         z, xbc, dt_raw = self._project(x)
@@ -216,7 +379,7 @@ class Mamba2Block(nn.Module):
                                    bmat, cmat, self.cfg.ssm_chunk)
         y = y.to(xs.dtype) + xs * self.d_skip[:, None].to(xs.dtype)
         y = y.reshape(b, s, d_in) * F.silu(z)
-        return x + (y @ self.out_proj).to(x.dtype)
+        return x + (y @ self.out_proj).to(x.dtype), _no_aux(x)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
         """The conv's last 3 inputs [B,3,C] and the SSD state [B,nh,64,N],
@@ -293,14 +456,15 @@ class MlstmBlock(nn.Module):
         return q, k, v, gates[..., :h], gates[..., h:], z
 
     def forward(self, x: torch.Tensor, off: int = 0,
-                force_chunked: bool = False) -> torch.Tensor:
-        """x: [B,S,d] with S a multiple of ``cfg.ssm_chunk``."""
+                force_chunked: bool = False):
+        """x: [B,S,d] with S a multiple of ``cfg.ssm_chunk`` ->
+        ``(x, 0)``."""
         b, s, _ = x.shape
         dp, h, hd = _mlstm_dims(self.cfg)
         q, k, v, ig, fg, z = self._qkv_gates(x, (b, s, h, hd))
         y, _ = ssm_lib.mlstm_chunked(q, k, v, ig, fg, self.cfg.ssm_chunk)
         y = y.to(x.dtype).reshape(b, s, dp) * F.silu(z)
-        return x + y @ self.down
+        return x + y @ self.down, _no_aux(x)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
         """``c [B·H,1,hd,hd]`` and ``n [B·H,1,1,hd]``, zero, in the compute
@@ -353,10 +517,11 @@ class SlstmBlock(nn.Module):
         return (rms_norm(x, self.ln) @ self.wx).reshape(b, s, 4, h, d // h)
 
     def forward(self, x: torch.Tensor, off: int = 0,
-                force_chunked: bool = False) -> torch.Tensor:
+                force_chunked: bool = False):
+        """x: [B,S,d] -> ``(x, 0)``."""
         b, s, d = x.shape
         ys, _ = ssm_lib.slstm_scan(self._parts(x), self.r)
-        return x + ys.to(x.dtype).reshape(b, s, d) @ self.out
+        return x + ys.to(x.dtype).reshape(b, s, d) @ self.out, _no_aux(x)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
         """The fp32 state ``c``, ``n``, ``h``, ``m`` [B,H,hd] at its start

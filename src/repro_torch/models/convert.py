@@ -4,14 +4,17 @@ into the port.
 The input is a tree shaped like the reference's ``Model.init`` parameter
 tree, with numpy leaves (what ``jax.tree.map(np.asarray, tree)`` gives):
 ``embed``, ``unembed`` (untied configs), ``final_ln`` and one ``g{i}`` per
-pattern entry whose leaves stack the layers ``[n_super, repeat, ...]``,
+pattern entry whose leaves stack the layers ``[n_super, repeat, ...]``
+(nested for a block's parts: ``attn.wq``, ``moe.w1``, ``xattn.wk``, ...),
 except for a shared entry (``SHARED_KINDS``), whose ``g{i}`` holds its
-one copy unstacked.
+one copy unstacked; an encoder-decoder's ``enc`` stacks the encoder
+blocks ``[n_enc_layers, ...]`` beside ``enc_ln``.
 The reference's gradients and its ``OptState.mu`` / ``nu`` have that
 shape too.  bf16 leaves cross as their raw bits (numpy has no bf16 of
 its own).  Every function visits the leaves in one order
 (:func:`_named_leaves`): the model's parameters, the blocks in the order
-of the reference's scan, a shared block at its first position only.
+of the reference's scan, a shared block at its first position only,
+then the encoder's blocks (the order of ``model.named_parameters()``).
 """
 from __future__ import annotations
 
@@ -52,7 +55,7 @@ def _named_leaves(model: Model, tree: Mapping[str, Any]
     parameter of ``model``, once each (the names of
     ``model.named_parameters()``)."""
     cfg = model.cfg
-    for name in ("embed", "unembed", "final_ln"):
+    for name in ("embed", "unembed", "final_ln", "enc_ln"):
         p = getattr(model, name)
         if p is not None:
             yield name, p, tree[name], name
@@ -69,6 +72,10 @@ def _named_leaves(model: Model, tree: Mapping[str, Any]
                     if not shared:
                         leaf, path = leaf[s, r], f"{path}[{s}, {r}]"
                     yield f"blocks.{n}.{name}", p, leaf, path
+    for n, blk in enumerate(model.enc):
+        for name, p in blk.named_parameters():
+            yield (f"enc.{n}.{name}", p, _leaf(tree["enc"], name)[n],
+                   f"enc.{name}[{n}]")
 
 
 @torch.no_grad()

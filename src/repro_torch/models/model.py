@@ -1,7 +1,8 @@
 """Model assembly: embeddings + the blocks + LM head, the counterpart of
-the JAX package's ``models/model.py`` for decoders of the block kinds
-``attn``, ``attn_local``, ``mamba2``, ``mlstm``, ``slstm`` and the
-shared attention block ``shared_attn``.
+the JAX package's ``models/model.py`` for models of the block kinds
+``attn``, ``attn_local``, ``attn_cross``, ``moe``, ``mamba2``, ``mlstm``,
+``slstm`` and the shared attention block ``shared_attn``, and for the
+encoder of an encoder-decoder (``cfg.n_enc_layers``).
 
 The reference stacks each pattern entry's weights ``[n_super, repeat,
 ...]`` and scans one super-block body; here the blocks are one
@@ -13,14 +14,25 @@ weights, which ``named_parameters()`` lists once, under its first
 position's name, and whose gradient sums over its uses; its caches stay
 per position.
 
+The encoder (``enc``, ``n_enc_layers`` plain attention blocks run
+non-causally, then ``enc_ln``) turns ``enc_embeds`` [B,S_enc,d] (the
+audio frontend's stub: precomputed frame embeddings) into the output
+every ``attn_cross`` block attends to.
+
 Public surface::
 
     m = Model(cfg, device=None, generator=None)   # weights built on device
-    logits = m(tokens)                             # prefill forward [B,S,V]
-    cache = m.init_cache(batch, max_len)           # one cache per position
+    logits = m(tokens[, enc_embeds])               # prefill forward [B,S,V]
+    cache = m.init_cache(batch, max_len[, enc_embeds])  # one per position
+    m.encode_into(cache, enc_embeds)               # the encoder, once
     logits = m.decode_step(cache, tokens, pos)     # [B,1,V]; cache updated
     m.requires_grad_(True)                         # make it trainable
-    loss, aux = m.loss_fn(batch)                   # {"tokens", "labels"}
+    loss, aux = m.loss_fn(batch)     # {"tokens", "labels"[, "enc_embeds"]}
+
+``loss_fn``'s total is the cross entropy plus ``0.01·aux``, where ``aux``
+sums the MoE blocks' balance losses in block order (0 without them); it
+leaves each block as an output of the function remat runs, never as
+module state a recompute could overwrite.
 
 The weights are built needing no gradient (serving); ``requires_grad_``
 (``nn.Module``'s) turns them into trainable leaves.  While autograd
@@ -33,22 +45,29 @@ backward pass, ``"dots"`` keeps the outputs of its matrix products
 everything.  A recomputed block calls :func:`attention` again, so
 ``attention.calls`` counts it twice.
 
-The rest of the LM substrate is not ported yet; :func:`unported` names
-what a config needs of it and the ROADMAP Queue 1 item that brings it,
-and :class:`Model` refuses such a config.
+The rest of the LM substrate (the vision frontend and M-RoPE) is not
+ported yet; :func:`unported` names what a config needs of it and the
+ROADMAP Queue 1 item that brings it, and :class:`Model` refuses such a
+config.
+
+One fault of the reference is not copied: its ``init_cache`` projects
+the cross-attention's K/V with the decoder's *self*-attention weights
+(``attn.wk`` / ``attn.wv``) where its forward uses ``xattn``'s, so its
+decode and forward disagree; here both use ``xattn``'s
+(:meth:`AttnBlock.cross_kv`).
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ..device import DeviceLike, resolve_device
-from .blocks import (AttnBlock, Mamba2Block, MlstmBlock, SlstmBlock, _ones,
-                     _param)
+from .blocks import (AttnBlock, Mamba2Block, MlstmBlock, MoeBlock,
+                     SlstmBlock, _ones, _param)
 from .config import BlockSpec, ModelConfig
 from .layers import _init_dense, dtype_of, rms_norm, softmax_xent
 
@@ -57,15 +76,15 @@ BLOCKS = {
     "attn": AttnBlock,
     "attn_local": lambda cfg, generator: AttnBlock(cfg, local=True,
                                                    generator=generator),
+    "attn_cross": lambda cfg, generator: AttnBlock(cfg, cross=True,
+                                                   generator=generator),
+    "moe": MoeBlock,
     "mamba2": Mamba2Block,
     "mlstm": MlstmBlock,
     "slstm": SlstmBlock,
 }
 SHARED_KINDS = {"shared_attn"}      # zamba2: one weight copy, many uses
 KINDS = tuple(BLOCKS) + tuple(sorted(SHARED_KINDS))
-
-#: the ROADMAP Queue 1 item that brings each missing block kind
-KIND_ITEMS = {"moe": 4, "attn_cross": 6}
 
 
 def _entry_kind(b: BlockSpec) -> str:
@@ -75,14 +94,10 @@ def _entry_kind(b: BlockSpec) -> str:
 def unported(cfg: ModelConfig) -> Optional[str]:
     """Why :class:`Model` cannot build ``cfg`` yet, or ``None``: each
     missing part with the ROADMAP Queue 1 item that brings it."""
-    missing = [f"block kind {b.kind!r} (ROADMAP Queue 1 item "
-               f"{KIND_ITEMS.get(b.kind, '?')})" for b in cfg.pattern
+    missing = [f"block kind {b.kind!r}" for b in cfg.pattern
                if b.kind not in KINDS]
-    if cfg.n_enc_layers:
-        missing.append("an encoder, n_enc_layers (ROADMAP Queue 1 item 6)")
-    if cfg.frontend:
-        missing.append(f"the {cfg.frontend} frontend (ROADMAP Queue 1 "
-                       f"item 7)")
+    if cfg.frontend == "vision":
+        missing.append("the vision frontend (ROADMAP Queue 1 item 7)")
     if cfg.m_rope:
         missing.append("M-RoPE (ROADMAP Queue 1 item 7)")
     if not missing:
@@ -151,6 +166,9 @@ class Model(nn.Module):
                         shared[i] = build(cfg, generator=gen)
                     blocks.append(shared[i])
         self.blocks = nn.ModuleList(blocks)
+        self.enc = nn.ModuleList(AttnBlock(cfg, generator=gen)
+                                 for _ in range(cfg.n_enc_layers))
+        self.enc_ln = _ones(cfg, gen) if cfg.n_enc_layers else None
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.final_ln)
@@ -158,39 +176,88 @@ class Model(nn.Module):
             return x @ self.embed.T.to(x.dtype)
         return x @ self.unembed
 
-    def forward(self, tokens: torch.Tensor,
-                force_chunked: bool = False) -> torch.Tensor:
-        """tokens: [B,S] integer -> logits [B,S,V].  ``force_chunked`` puts
-        every layer's attention on the chunked route (to hold the flash
-        route against it).  Blocks run under ``cfg.remat`` while autograd
-        records and the weights need a gradient."""
-        x = self.embed[tokens].to(dtype_of(self.cfg.compute_dtype))
+    def _run(self) -> Callable:
+        """``run(block, *args)`` under ``cfg.remat`` while autograd
+        records and the weights need a gradient, plainly otherwise."""
         training = torch.is_grad_enabled() and any(
             p.requires_grad for p in self.parameters())
-        run = _remat(self.cfg.remat if training else "none")
+        return _remat(self.cfg.remat if training else "none")
+
+    def encode(self, enc_embeds: torch.Tensor,
+               force_chunked: bool = False) -> torch.Tensor:
+        """The encoder: ``enc_embeds`` [B,S_enc,d] (cast to the compute
+        dtype) through every encoder block, non-causally, then
+        ``enc_ln``."""
+        x = enc_embeds.to(dtype_of(self.cfg.compute_dtype))
+        run = self._run()
+        for blk in self.enc:
+            x, _ = run(blk, x, 0, force_chunked, None, False)
+        return rms_norm(x, self.enc_ln)
+
+    def forward_with_aux(self, tokens: torch.Tensor,
+                         enc_embeds: Optional[torch.Tensor] = None,
+                         force_chunked: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens: [B,S] integer -> ``(logits [B,S,V], aux)``, ``aux`` the
+        fp32 sum of the blocks' balance losses in block order.
+        ``enc_embeds`` [B,S_enc,d] runs the encoder, whose output the
+        cross blocks attend to."""
+        x = self.embed[tokens].to(dtype_of(self.cfg.compute_dtype))
+        run = self._run()
+        extra = ()
+        if enc_embeds is not None:
+            extra = (self.encode(enc_embeds, force_chunked),)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.blocks:
-            x = run(blk, x, 0, force_chunked)
-        return self._logits(x)
+            x, a = run(blk, x, 0, force_chunked, *extra)
+            aux = aux + a
+        return self._logits(x), aux
+
+    def forward(self, tokens: torch.Tensor,
+                enc_embeds: Optional[torch.Tensor] = None,
+                force_chunked: bool = False) -> torch.Tensor:
+        """tokens: [B,S] integer -> logits [B,S,V].  ``force_chunked`` puts
+        every attention on the chunked route (to hold the flash route
+        against it).  Blocks run under ``cfg.remat`` while autograd
+        records and the weights need a gradient."""
+        return self.forward_with_aux(tokens, enc_embeds, force_chunked)[0]
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """``batch``: ``{"tokens": [B,S], "labels": [B,S]}`` -> ``(total,
-        {"xent", "aux"})``, the reference's ``loss_fn``: the mean cross
-        entropy (softcapped by ``cfg.logit_softcap``) plus ``0.01·aux``,
-        where ``aux`` (the MoE balance loss) is 0 for every ported
-        block."""
-        logits = self(batch["tokens"])
+        """``batch``: ``{"tokens": [B,S], "labels": [B,S]}`` and, for an
+        encoder-decoder, ``"enc_embeds"`` -> ``(total, {"xent", "aux"})``,
+        the reference's ``loss_fn``: the mean cross entropy (softcapped by
+        ``cfg.logit_softcap``) plus ``0.01·aux``."""
+        logits, aux = self.forward_with_aux(batch["tokens"],
+                                            batch.get("enc_embeds"))
         loss = softmax_xent(logits, batch["labels"], self.cfg.logit_softcap)
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         total = loss + 0.01 * aux
         return total, dict(xent=loss, aux=aux)
 
-    def init_cache(self, batch: int, max_len: int
+    def init_cache(self, batch: int, max_len: int,
+                   enc_embeds: Optional[torch.Tensor] = None
                    ) -> List[Dict[str, torch.Tensor]]:
         """One cache per position of ``blocks`` (a shared block's too):
         K/V of [B, max_len, KV, hd] for attention, the recurrent state
-        for the others."""
-        return [blk.init_cache(batch, max_len) for blk in self.blocks]
+        for the others.  With ``enc_embeds`` [B,S_enc,d] the encoder runs
+        once and each cross block's cache gets its ``xk`` / ``xv``
+        [B,S_enc,KV,hd]; without, decode has no cross-attention."""
+        caches = [blk.init_cache(batch, max_len) for blk in self.blocks]
+        if enc_embeds is not None:
+            self.encode_into(caches, enc_embeds)
+        return caches
+
+    def encode_into(self, cache: List[Dict[str, torch.Tensor]],
+                    enc_embeds: torch.Tensor) -> None:
+        """Run the encoder once on ``enc_embeds`` [B,S_enc,d] and set each
+        cross block's ``xk`` / ``xv`` [B,S_enc,KV,hd] in ``cache`` (a
+        no-op without an encoder)."""
+        if not self.cfg.n_enc_layers:
+            return
+        enc_out = self.encode(enc_embeds)
+        for blk, c in zip(self.blocks, cache):
+            if isinstance(blk, AttnBlock) and blk.cross:
+                c.update(blk.cross_kv(enc_out))
 
     def decode_step(self, cache: List[Dict[str, torch.Tensor]],
                     tokens: torch.Tensor, pos: int) -> torch.Tensor:

@@ -207,7 +207,7 @@ ATTN_CASES = {
     "offset": (1, 32, 96, 4, 1, 16, True, None, 64, 0, "chunked"),
     "hd16_chunked": (2, 128, 128, 4, 2, 16, True, None, 0, 32, "chunked"),
     "hd256": (1, 64, 64, 2, 1, 256, True, None, 0, 0, "chunked"),
-    "full": (1, 64, 64, 2, 2, 64, False, None, 0, 0, "chunked"),
+    "full": (1, 64, 64, 2, 2, 64, False, None, 0, 0, "flash"),
     "window_chunked": (1, 128, 128, 4, 4, 32, True, 24, 0, 64, "chunked"),
 }
 
@@ -257,7 +257,7 @@ ROUTE_CASES = [
      "causal self-attention"),
     (2, 64, 64, 4, 4, 64, torch.float32, True, None, 0, "flash",
      "causal self-attention"),
-    (1, 128, 128, 4, 2, 128, torch.bfloat16, False, None, 0, "chunked",
+    (1, 128, 128, 4, 2, 128, torch.bfloat16, False, None, 0, "flash",
      "not causal"),
     (1, 128, 128, 4, 2, 128, torch.bfloat16, True, 32, 0, "chunked",
      "sliding window"),
@@ -426,10 +426,11 @@ def test_attn_block_forward_and_decode(local, dtype):
     ref, _ = ref_blocks.train_attn(rcfg, params, _jnp(x, dtype), local=local)
     _reset_routes()
     with torch.inference_mode():
-        got = blk(_torch(x, dtype))
+        got, aux = blk(_torch(x, dtype))
     assert attn.attention.calls == ({"flash": 0, "chunked": 1} if local
                                     else {"flash": 1, "chunked": 0})
     assert_close(got, ref, dtype)
+    assert float(aux) == 0.0
 
     # decode four tokens into a cache, from position 0
     cache = ref_blocks.cache_init_attn(rcfg, 2, 8)

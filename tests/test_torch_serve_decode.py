@@ -28,7 +28,8 @@ from repro_torch.models.model import Model, unported
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORTED = ("mistral-nemo-12b", "gemma3-12b", "starcoder2-7b",
-          "command-r-35b", "xlstm-350m", "zamba2-2.7b")
+          "command-r-35b", "xlstm-350m", "zamba2-2.7b", "arctic-480b",
+          "kimi-k2-1t-a32b", "seamless-m4t-large-v2")
 
 
 def _run(args, env_extra=None):
@@ -56,10 +57,13 @@ def test_decode_cli_on_the_cpu(arch):
 
 @pytest.mark.slow
 def test_decode_cli_refuses_an_unported_arch():
-    out = _run(["decode", "--arch", "arctic-480b", "--smoke",
+    """``qwen2-vl-7b`` needs the vision frontend and M-RoPE (the MoE
+    arch this test refused before is ported now)."""
+    out = _run(["decode", "--arch", "qwen2-vl-7b", "--smoke",
                 "--device", "cpu"])
     assert out.returncode != 0
-    assert "'moe' (ROADMAP Queue 1 item 4)" in out.stderr
+    assert "the vision frontend (ROADMAP Queue 1 item 7)" in out.stderr
+    assert "M-RoPE (ROADMAP Queue 1 item 7)" in out.stderr
     assert "serve ok" not in out.stdout
 
 
@@ -78,11 +82,15 @@ def test_decode_main_resolves_the_device_before_building(monkeypatch,
 
 
 def test_moe_config_is_refused():
-    cfg = smoke_config("arctic-480b")
-    assert "'moe'" in unported(cfg)
-    with pytest.raises(NotImplementedError, match=r"'moe' \(ROADMAP Queue 1 "
-                       r"item 4\)"):
+    """Once the MoE arch's refusal; MoE is ported now, so it holds the
+    one config still refused, ``qwen2-vl-7b`` (the vision frontend and
+    M-RoPE), while the MoE config builds."""
+    cfg = smoke_config("qwen2-vl-7b")
+    assert "M-RoPE" in unported(cfg)
+    with pytest.raises(NotImplementedError, match=r"M-RoPE \(ROADMAP Queue 1 "
+                       r"item 7\)"):
         Model(cfg, device="cpu")
+    assert unported(smoke_config("arctic-480b")) is None
 
 
 @pytest.mark.parametrize("arch", sorted(REF_ARCHS))
@@ -108,7 +116,7 @@ def test_registry_and_shapes_equal_the_references():
 def test_prompts_are_the_references():
     """Both CLIs feed the same tokens (``np.random.default_rng(0)``)."""
     rng = np.random.default_rng(0)
-    np.testing.assert_array_equal(serve.make_prompts(512, 4, 64),
+    np.testing.assert_array_equal(serve.make_inputs(512, 4, 64)[0],
                                   rng.integers(0, 512, (4, 64)))
 
 
@@ -122,7 +130,7 @@ def test_decode_loop_generates_the_references_tokens():
     rm = RefModel(cfg)
     params = rm.init(jax.random.PRNGKey(0))
     b, pl_, g = 2, 8, 8
-    prompts = serve.make_prompts(cfg.vocab_size, b, pl_)
+    prompts = serve.make_inputs(cfg.vocab_size, b, pl_)[0]
     cache = rm.init_cache(b, pl_ + g + 1)
     decode = jax.jit(rm.decode_step)
     tok = jnp.asarray(prompts[:, 0:1], jnp.int32)
@@ -145,3 +153,4 @@ def test_decode_loop_generates_the_references_tokens():
     res = serve.run_decode(tm, torch.from_numpy(prompts), g)
     np.testing.assert_array_equal(res["tokens"], np.stack(ref, axis=1))
     assert res["prefill_s"] > 0 and res["decode_s"] > 0
+    assert res["encode_s"] is None

@@ -319,8 +319,8 @@ def test_block_forward_and_decode(kind, dtype):
     jx, tx = _both(x, dtype)
     ref, _ = ref_blocks.TRAIN_FNS[kind](rcfg, params, jx, 0, None)
     with torch.inference_mode():
-        got = blk(tx)
-    assert got.dtype == td
+        got, aux = blk(tx)
+    assert got.dtype == td and float(aux) == 0.0
     assert_close(got, ref, dtype)
 
     cache = ref_blocks.CACHE_FNS[kind](rcfg, 2, 8)

@@ -481,7 +481,8 @@ def test_run_train_returns_the_live_state():
 
 @pytest.mark.parametrize("argv,reason", [
     ([], "no CUDA device"),
-    (["--arch", "kimi-k2-1t-a32b"], "ROADMAP Queue 1 item 4"),
+    # once the MoE arch's refusal: kimi is ported, qwen2-vl is not yet
+    (["--arch", "qwen2-vl-7b"], "ROADMAP Queue 1 item 7"),
     (["--arch", "mistral-nemo-12b", "--smoke", "--mesh", "2x4",
       "--device", "cpu"], "ROADMAP Queue 1 item 8"),
     (["--arch", "mistral-nemo-12b"], "no CUDA device"),
