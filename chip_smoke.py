@@ -75,13 +75,25 @@ where there is no CUDA device or the port's package is missing.  It
     cross-attention in its full mode), the ``serve decode`` loop (its
     encoder once, on the kernel), ``run_train`` at seq 1,024, and checks:
     flash against chunked, decode against forward, every gradient;
-11. holds the GPU evaluator against the CPU one on 262,144 genomes per
+11. drives the vision-language model ``qwen2-vl-7b`` at full size (28
+    layers, bf16, M-RoPE): a prefill of 256 frontend embeddings + 32,512
+    text tokens with the flash kernel in all 28 layers (GQA 28/4), the
+    ``serve decode`` loop, ``run_train`` at 8 layers and seq 4,096, and
+    checks: flash vs chunked, fp32 forward vs ``decode_step``, gradients,
+    no flash launch in training, a falling loss on a fixed batch;
+12. drives the multi-device training path on the card's world of one:
+    an NCCL process group, a (1, 1) ("data", "model") ``DeviceMesh``, the
+    self-test's four checks (pipeline, int8 all-reduce, sharded vs single
+    train step, elastic restore) and ``run_train`` of the 8-layer
+    ``qwen2-vl-7b`` in fp32 over the mesh against the un-meshed run;
+13. holds the GPU evaluator against the CPU one on 262,144 genomes per
     workload and measures its rows per second;
-12. holds each kernel against its plain PyTorch version on the card — the
+14. holds each kernel against its plain PyTorch version on the card — the
     reference's test shapes, the edges of each route's tiles (half a query
     tile, empty, fully dense and all-zero block-rows, every column tile) and
     the workload shapes; at the model prefills' attention shapes
-    (``mistral-nemo-12b``, ``arctic-480b``, ``seamless-m4t-large-v2``)
+    (``mistral-nemo-12b``, ``arctic-480b``, ``seamless-m4t-large-v2``,
+    ``qwen2-vl-7b``)
     against the model's chunked route — and times kernel, plain version
     and one library call beside the least time the card could take
     (``bound_ms``).  Each
@@ -2583,6 +2595,409 @@ def encdec_phase(device):
     return out
 
 
+# --------------------------------------------------------------------- vlm
+
+VLM_ARCH = "qwen2-vl-7b"
+VLM_SOURCE = "arXiv:2409.12191; hf:Qwen/Qwen2-VL-7B-Instruct (28 layers, " \
+    "d 3,584, 28/4 heads of 128, SwiGLU 18,944, vocab 152,064, M-RoPE " \
+    "sections 2:1:1, 256 vision tokens)"
+VLM_PREFILL_S = 32_768      # frontend + text positions, one sequence
+VLM_DECODE = (4, 64, 32)    # batch, prompt, generated: the CLI's defaults
+VLM_ROUTES_CHECK = (2, 2, 4096)     # layers, batch, positions of check (1)
+VLM_DECODE_CHECK = (2, 512)         # fp32 layers, positions of check (2)
+VLM_DECODE_REL_RMS = 1e-3
+# depth 28 -> 8: fp32 moments of 28 layers are ~122 GB; batch 256 -> 1
+VLM_TRAIN = dict(layers=8, seq=4096, batch=1, steps=4, warmup=1)
+VLM_GRAD_S = 1024                   # positions of the gradient check
+VLM_LOSS_CHECK = (2, 2, 1024)       # fp32 layers, batch, positions
+
+
+def _frontend(cfg, b, gen, device):
+    """Stand-in vision embeddings [b, nf, d], N(0, 0.02²), as the data
+    pipeline draws them."""
+    import torch
+    return torch.randn((b, cfg.n_frontend_tokens, cfg.d_model),
+                       generator=gen, device=device) * 0.02
+
+
+def vlm_forward_flops(cfg, seq):
+    """Forward FLOPs of one sequence of ``seq`` positions (frontend and
+    text): weight products (the LM head over every position) and causal
+    attention."""
+    d, ff, v, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    qkv_o = 2 * d * cfg.n_heads * cfg.hd + 2 * d * cfg.n_kv_heads * cfg.hd
+    weights = 2.0 * seq * (L * (qkv_o + 3 * d * ff) + d * v)
+    attn = 4.0 * cfg.n_heads * (seq * (seq + 1) / 2) * cfg.hd * L
+    return weights, attn
+
+
+def vlm_phase(device):
+    """The vision-language model on the card (``qwen2-vl-7b``, all 28
+    layers, bf16, random weights from seed 0): one prefill forward of 256
+    frontend embeddings + 32,512 text tokens (M-RoPE in every layer, every
+    attention on the flash kernel), the ``serve decode`` loop (B 4, prompt
+    64, gen 32; text only, as the reference's CLI), ``run_train`` at 8
+    layers, seq 4,096 (256 + 3,840), and checks (1) flash vs chunked on
+    the first 2 layers, (2) fp32 forward vs 512 ``decode_step``s on the
+    first 2 layers, (3) every layer's ``wq``/``wk``/``wv`` gradient finite
+    and nonzero and no flash launch in a train step, (4) a 2-layer fp32
+    model's loss falls on a fixed batch at the width-scaled lr."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.launch.train import run_train
+    from repro_torch.models.model import Model
+    from repro_torch.optim import optimizer as opt
+
+    reset, counts = _reset_flash_counts, _flash_counts
+    cfg = get_config(VLM_ARCH)
+    check(cfg.m_rope and cfg.frontend == "vision",
+          f"{VLM_ARCH}: m_rope {cfg.m_rope}, frontend {cfg.frontend}")
+    n_layers, nf = cfg.n_layers, cfg.n_frontend_tokens
+    out = dict(arch=VLM_ARCH, source=VLM_SOURCE, layers=n_layers,
+               frontend_tokens=nf, dtype=cfg.param_dtype,
+               reduced=dict(train_layers=[n_layers, VLM_TRAIN["layers"]],
+                            train_batch=[256, VLM_TRAIN["batch"]]))
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=device).manual_seed(7)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device,
+                  generator=torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    out.update(build_s=time.perf_counter() - t0, param_count=sum(
+        p.numel() for p in model.parameters()), param_bytes=param_bytes)
+    prefill = build_prefill_step(model)
+
+    # ---- prefill: the main path of this phase, counts at 0 just before
+    s = VLM_PREFILL_S
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, s - nf))).to(device),
+        "frontend": _frontend(cfg, 1, gen, device)}
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    logits = prefill(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    forward_peak = torch.cuda.max_memory_allocated(device)
+    check(launches == dict(flash_kernel=n_layers, route_flash=n_layers,
+                           route_chunked=0),
+          f"vlm prefill: {launches}, want the flash kernel in each of the "
+          f"{n_layers} layers and no chunked route")
+    check(tuple(logits.shape) == (1, s, cfg.vocab_size)
+          and logits.dtype == torch.bfloat16
+          and bool(torch.isfinite(logits).all()),
+          "vlm prefill: logits of the wrong shape or not finite")
+    del logits
+    walls = [wall]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del logits
+    by_kernel, n_ops = device_ms_by_kernel(lambda: prefill(batch))
+    dev_ms = sum(by_kernel.values())
+    families = {}
+    for name, ms in by_kernel.items():
+        fam = _kernel_family(name)
+        families[fam] = families.get(fam, 0.0) + ms
+    w_flops, a_flops = vlm_forward_flops(cfg, s)
+    flops = w_flops + a_flops
+    moved = param_bytes + s * cfg.vocab_size * 2
+    flash_ms = families.get("flash_attention (hand kernel)", 0.0)
+    out["prefill"] = dict(
+        batch=1, positions=s, frontend=nf, text=s - nf, launches=launches,
+        wall_s=walls[0], wall_s_repeats=walls[1:],
+        tokens_per_s=s / min(walls), device_ms=dev_ms,
+        device_ops=n_ops, flash_device_ms=flash_ms,
+        flash_share_of_device_time=flash_ms / dev_ms,
+        device_ms_by_family=families,
+        top_kernels_ms=dict(list(by_kernel.items())[:8]),
+        flops=flops, weight_flops=w_flops, attention_flops=a_flops,
+        bytes=moved,
+        bound_s=max(flops / PEAK_FLOPS["bfloat16"], moved / HBM_BYTES_PER_S),
+        forward_max_memory_allocated_bytes=forward_peak,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(device))
+    out["prefill"]["share_of_bound"] = out["prefill"]["bound_s"] / min(walls)
+    del batch
+
+    # ---- decode: the serve decode loop, counts at 0 just before
+    b, pl_, g = VLM_DECODE
+    prompts = torch.from_numpy(serve.make_inputs(cfg.vocab_size, b, pl_)[0]
+                               ).to(device)
+    reset()
+    res = serve.run_decode(model, prompts, g)
+    dec_launches = counts()
+    gen_toks = res["tokens"]
+    check(gen_toks.shape == (b, g) and ((gen_toks >= 0) &
+                                        (gen_toks < cfg.vocab_size)).all(),
+          f"vlm decode: generated tokens {gen_toks.shape} out of range")
+    check(dec_launches["route_flash"] == dec_launches["route_chunked"] == 0,
+          f"vlm decode: {dec_launches}; decode steps call no prefill route")
+    step = build_serve_step(model)
+    with torch.inference_mode():
+        cache = model.init_cache(b, pl_ + g + 1)
+        step_kernels, step_launches = device_ms_by_kernel(
+            lambda: step(cache, prompts[:, :1], pl_ + g))
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for c in cache for t in c.values())
+        del cache
+    step_ms = res["decode_s"] / g * 1e3
+    read = param_bytes - model.embed.numel() * model.embed.element_size() \
+        + b * cfg.d_model * model.embed.element_size() + cache_bytes
+    bound_ms = read / HBM_BYTES_PER_S * 1e3
+    out["decode"] = dict(
+        batch=b, prompt=pl_, gen=g, launches=dec_launches,
+        prefill_by_steps_s=res["prefill_s"], decode_s=res["decode_s"],
+        ms_per_step=step_ms, tokens_per_s=b * g / res["decode_s"],
+        bytes_per_step=read, bound_ms_per_step=bound_ms,
+        share_of_bound=bound_ms / step_ms,
+        device_launches_per_step=step_launches,
+        device_ms_per_step=sum(step_kernels.values()),
+        device_idle_share=1.0 - sum(step_kernels.values()) / step_ms,
+        first_generated=gen_toks[:2, :8].tolist())
+
+    # ---- check (1): flash route against the chunked route, first layers
+    nl, cb, cs = VLM_ROUTES_CHECK
+    sub = _first_layers(model, nl)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (cb, cs - nf))).to(device)
+    fe = _frontend(cfg, cb, gen, device)
+    with torch.inference_mode():
+        reset()
+        lf = sub(toks, frontend=fe)
+        flash_counts = counts()
+        reset()
+        lc = sub(toks, frontend=fe, force_chunked=True)
+        chunked_counts = counts()
+    check(flash_counts == dict(flash_kernel=nl, route_flash=nl,
+                               route_chunked=0)
+          and chunked_counts == dict(flash_kernel=0, route_flash=0,
+                                     route_chunked=nl),
+          f"vlm routes check: flash run {flash_counts}, chunked run "
+          f"{chunked_counts}")
+    out["check_routes"] = dict(layers=nl, batch=cb, positions=cs,
+                               **_logits_check(lf, lc,
+                                               "vlm flash vs chunked"))
+    del lf, lc, sub, toks, fe, model, prefill, step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- check (2): fp32 forward against decode_step, first layers
+    nl, ds = VLM_DECODE_CHECK
+    cfg32 = dataclasses.replace(cfg, n_super=nl, param_dtype="float32",
+                                compute_dtype="float32")
+    m32 = Model(cfg32, device=device,
+                generator=torch.Generator(device=device).manual_seed(2))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, ds))
+                            ).to(device)
+    with torch.inference_mode():
+        fwd = m32(toks)
+    dec = _decode_all(m32, toks)
+    worst = _rel_rms_worst(dec, fwd)
+    check(math.isfinite(worst) and worst <= VLM_DECODE_REL_RMS,
+          f"vlm fp32 decode_step vs forward: {worst:.3g} of the logits' "
+          f"rms (limit {VLM_DECODE_REL_RMS})")
+    out["check_decode"] = dict(layers=nl, positions=ds, dtype="float32",
+                               worst_rel_rms=worst,
+                               rel_rms_limit=VLM_DECODE_REL_RMS)
+    del m32, fwd, dec, toks
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- training through run_train, 8 layers, then check (3)
+    tr = VLM_TRAIN
+    tcfg = dataclasses.replace(cfg, n_super=tr["layers"])
+    check(tcfg.remat == "full", f"{tcfg.name}: remat {tcfg.remat!r}")
+    lines = []
+    torch.cuda.reset_peak_memory_stats(device)
+    reset()
+    t0 = time.perf_counter()
+    res = run_train(tcfg, steps=tr["steps"], batch=tr["batch"],
+                    seq=tr["seq"], device=device, log_every=1,
+                    log=lines.append)
+    torch.cuda.synchronize()
+    train_launches = counts()
+    losses = res["losses"]
+    check(len(losses) == tr["steps"] and all(map(math.isfinite, losses)),
+          f"vlm train: losses {losses}")
+    check(train_launches["flash_kernel"] == 0
+          and train_launches["route_flash"] == 0,
+          f"vlm train: {train_launches}; training must not run the "
+          f"forward-only flash kernel")
+    tmodel = res["model"]
+    n_params = sum(p.numel() for p in tmodel.parameters())
+    step_s = res["step_s"][tr["warmup"]:]
+    mean_s = sum(step_s) / len(step_s)
+    w_flops, a_flops = vlm_forward_flops(tcfg, tr["seq"])
+    tflops = 3.0 * tr["batch"] * (w_flops + a_flops)
+    t_bound_s = tflops / PEAK_FLOPS["bfloat16"] + \
+        OPT_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S
+    train_peak = torch.cuda.max_memory_allocated(device)
+    data_batch = res["data"].batch_at(tr["steps"])
+    check(set(data_batch) == {"tokens", "labels", "frontend"}
+          and data_batch["frontend"].shape[1] == nf,
+          f"vlm train: the pipeline's batch holds {sorted(data_batch)}")
+    batch = {k: torch.from_numpy(v[:1, :VLM_GRAD_S]).to(device)
+             for k, v in data_batch.items()}
+    reset()
+    _, grads = steps_lib.loss_and_grads(tmodel, batch)
+    grad_launches = counts()
+    bad = []
+    for i in range(tcfg.n_layers):
+        for w in ("wq", "wk", "wv"):
+            gr = grads[f"blocks.{i}.attn.{w}"]
+            if not (bool(torch.isfinite(gr).all()) and
+                    float(gr.abs().max()) > 0):
+                bad.append(f"blocks.{i}.attn.{w}")
+    check(not bad and grad_launches["flash_kernel"] == 0,
+          f"vlm train: no nonzero finite gradient for {bad}, or flash "
+          f"launches {grad_launches}")
+    out["train"] = dict(
+        layers=tcfg.n_layers, positions=tr["seq"], frontend=nf,
+        text=tr["seq"] - nf, batch=tr["batch"], steps=tr["steps"],
+        warmup_steps=tr["warmup"], remat=tcfg.remat, param_count=n_params,
+        wall_s=time.perf_counter() - t0, losses=losses, lines=lines,
+        step_s=res["step_s"], ms_per_step=mean_s * 1e3,
+        ms_per_step_median=sorted(step_s)[len(step_s) // 2] * 1e3,
+        tokens_per_s=tr["batch"] * tr["seq"] / mean_s, model_flops=tflops,
+        bound_ms=t_bound_s * 1e3, share_of_bound=t_bound_s / mean_s,
+        bound_convention="3 x forward FLOPs (weight products + causal "
+        "attention, recompute excluded) at 989 TFLOP/s, plus the "
+        "optimizer's 22 bytes a parameter at 3.35 TB/s",
+        max_memory_allocated_bytes=train_peak, launches=train_launches,
+        check_attention_grads=dict(layers=tcfg.n_layers,
+                                   leaves=3 * tcfg.n_layers,
+                                   positions=VLM_GRAD_S, ok=True))
+    del grads, res, tmodel, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- check (4): the loss falls on a fixed batch, 2-layer fp32 model
+    nl, lb, ls = VLM_LOSS_CHECK
+    cfg2 = dataclasses.replace(cfg, n_super=nl, param_dtype="float32",
+                               compute_dtype="float32")
+    m2 = Model(cfg2, device=device,
+               generator=torch.Generator(device=device).manual_seed(1))
+    m2.requires_grad_(True)
+    data = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=ls, global_batch=lb,
+        frontend="vision", n_frontend_tokens=nf, d_model=cfg.d_model))
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in data.batch_at(0).items()}
+    lr = TRAIN_LR_SMOKE * math.sqrt(64 / cfg.d_model)
+    ocfg = opt.OptConfig(lr=lr, warmup_steps=1, total_steps=50)
+    step = steps_lib.build_train_step(
+        m2, ocfg, opt.init(dict(m2.named_parameters()), ocfg))
+    fixed = [float(step(batch)["loss"]) for _ in range(TRAIN_CHECK_STEPS)]
+    check(all(map(math.isfinite, fixed)) and
+          fixed[-1] < fixed[0] - TRAIN_MIN_DROP,
+          f"vlm train: the loss on a fixed batch went {fixed} at lr "
+          f"{lr:.3g}")
+    out["check_loss_decreases"] = dict(
+        layers=nl, batch=lb, positions=ls, lr=lr, losses=fixed,
+        drop=fixed[0] - fixed[-1], min_drop=TRAIN_MIN_DROP)
+    out["launches"] = dict(prefill=launches, decode=dec_launches,
+                           train=train_launches)
+    del m2, step, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["card"] = card_line()
+    return out
+
+
+# -------------------------------------------------------------------- dist
+
+# the sharded path's parity run: 8 layers of qwen2-vl-7b in fp32 (no TF32
+# products), 2 steps; seq 4,096 -> 1,024 (256 frontend + 768 text) so the
+# fp32 weights, their sharded copies, gradients and moments (~59 GB) fit
+DIST_TRAIN = dict(layers=8, seq=1024, batch=1, steps=2)
+DIST_LOSS_RTOL = 1e-5
+
+
+def dist_phase(device):
+    """The multi-device training path on the card's world of one: an NCCL
+    process group and a (1, 1) ("data", "model") ``DeviceMesh``; the
+    self-test's four checks (the GPipe pipeline, the int8 all-reduce, the
+    sharded train step against the single one, an elastic restore), then
+    ``run_train`` of the 8-layer ``qwen2-vl-7b`` in fp32 with ``mesh=``
+    (``--mesh 1x1``) against the un-meshed run: every step's loss within
+    1e-5 relative, and both step times."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import selftest
+    from repro_torch.distributed.launch import process_group
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import run_train
+
+    tr = DIST_TRAIN
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_super=tr["layers"],
+                              param_dtype="float32", compute_dtype="float32")
+    out = dict(arch=VLM_ARCH, world=1, backend="nccl", mesh=[1, 1],
+               train=dict(layers=tr["layers"], positions=tr["seq"],
+                          batch=tr["batch"], steps=tr["steps"],
+                          dtype="float32"),
+               reduced=dict(train_seq=[4096, tr["seq"]]))
+    kw = dict(steps=tr["steps"], batch=tr["batch"], seq=tr["seq"],
+              device=device, log_every=1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    single = run_train(cfg, log=lambda line: None, **kw)
+    single_losses, single_s = single["losses"], single["step_s"]
+    single_peak = torch.cuda.max_memory_allocated(device)
+    del single
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    with process_group("cuda"):
+        import torch.distributed as dist
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"dist: backend {dist.get_backend()}, world "
+              f"{dist.get_world_size()}")
+        t0 = time.perf_counter()
+        out["selftest"] = {name: fn() for name, fn in selftest.CHECKS}
+        out["selftest_s"] = time.perf_counter() - t0
+        mesh = make_test_mesh((1, 1), ("data", "model"))
+        meshed = run_train(cfg, mesh=mesh, log=lambda line: None, **kw)
+        meshed_losses, meshed_s = meshed["losses"], meshed["step_s"]
+        del meshed
+    rel = [abs(a - b) / abs(b) for a, b in zip(meshed_losses, single_losses)]
+    check(len(rel) == tr["steps"] and max(rel) <= DIST_LOSS_RTOL,
+          f"dist: --mesh 1x1 losses {meshed_losses} against "
+          f"{single_losses} (limit {DIST_LOSS_RTOL} relative)")
+    out["train"].update(
+        losses_single=single_losses, losses_mesh=meshed_losses,
+        loss_rel_err=max(rel), loss_rtol=DIST_LOSS_RTOL,
+        step_s_single=single_s, step_s_mesh=meshed_s,
+        ms_per_step_single=single_s[-1] * 1e3,
+        ms_per_step_mesh=meshed_s[-1] * 1e3,
+        max_memory_allocated_bytes_single=single_peak,
+        max_memory_allocated_bytes_mesh=torch.cuda.max_memory_allocated(
+            device))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["card"] = card_line()
+    return out
+
+
 # --------------------------------------------------------------- main path
 
 
@@ -2665,7 +3080,8 @@ MODEL_FLASH_SHAPES = (("lm_prefill", 1, 32, LM_PREFILL_S, 128, True),
                       ("seamless", 1, 16, ENCDEC_PREFILL_S, 64, False),
                       ("seamless", 1, 16, ENCDEC_PREFILL_S, 64, True),
                       ("seamless_decode", ENCDEC_DECODE[0], 16,
-                       ENCDEC_DECODE[1], 64, False))
+                       ENCDEC_DECODE[1], 64, False),
+                      ("vlm_prefill", 1, 28, VLM_PREFILL_S, 128, True))
 #: the divisibility tiles the model's attention passes the kernel
 #: (``S_MULTIPLE``, so S 64 is accepted); its own tile is ``flash_plan``'s
 MODEL_TILES = dict(bq=64, bk=64)
@@ -3201,10 +3617,11 @@ def kernel_table(bsr_cases, flash_cases, model_cases, launches):
     """One entry per kernel; the headline numbers are those of its
     largest kernel-path shape, every shape is under ``cases``.
     ``launches`` sums the main paths' counts, ``launches_by_path`` holds
-    each (``lm_prefill``, ``arctic``, ``kimi``, ``seamless``: one prefill
-    forward of that model; ``seamless_decode``: its decode loop, whose
-    encoder runs once; ``tables``, ``train``, ``xlstm``, ``zamba2`` and
-    ``*_train``: those phases and paths, which reach no kernel)."""
+    each (``lm_prefill``, ``arctic``, ``kimi``, ``seamless``,
+    ``vlm_prefill``: one prefill forward of that model;
+    ``seamless_decode``: its decode loop, whose encoder runs once;
+    ``tables``, ``train``, ``xlstm``, ``zamba2``, ``vlm_decode``, ``dist``
+    and ``*_train``: those phases and paths, which reach no kernel)."""
     def entry(name, source, replaces, cases, head):
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -3287,6 +3704,7 @@ def main(argv=None) -> int:
                         ("serve", serve_phase), ("lm", lm_phase),
                         ("train", train_phase), ("ssm", ssm_phase),
                         ("moe", moe_phase), ("encdec", encdec_phase),
+                        ("vlm", vlm_phase), ("dist", dist_phase),
                         ("evaluator", evaluator_phase)):
         t0 = time.perf_counter()
         bsr_spmm.launches = 0
@@ -3302,7 +3720,7 @@ def main(argv=None) -> int:
     # kernel (nor do they in the reference): training runs the chunked
     # route under autograd, xlstm has no attention and zamba2's head
     # size is not the flash kernel's
-    for name in ("tables", "train", "ssm"):
+    for name in ("tables", "train", "ssm", "dist"):
         check(report[name]["kernel_launches"] == dict(bsr_spmm=0,
                                                       flash_attention=0),
               f"{name}: kernel launches {report[name]['kernel_launches']}")
@@ -3324,7 +3742,9 @@ def main(argv=None) -> int:
                       **{a.split("-")[0]: r["launches"]["bsr_spmm"]
                          for a, r in ssm_runs.items()},
                       moe=report["moe"]["kernel_launches"]["bsr_spmm"],
-                      encdec=report["encdec"]["kernel_launches"]["bsr_spmm"]),
+                      encdec=report["encdec"]["kernel_launches"]["bsr_spmm"],
+                      vlm=report["vlm"]["kernel_launches"]["bsr_spmm"],
+                      dist=report["dist"]["kernel_launches"]["bsr_spmm"]),
         flash_attention=dict(
             kernel_path=launches["flash_attention"],
             lm_prefill=report["lm"]["prefill"]["launches"]["flash_kernel"],
@@ -3338,7 +3758,11 @@ def main(argv=None) -> int:
                 "flash_kernel"],
             seamless=encdec["prefill"]["flash_kernel"],
             seamless_decode=encdec["decode"]["flash_kernel"],
-            seamless_train=encdec["train"]["flash_kernel"]))
+            seamless_train=encdec["train"]["flash_kernel"],
+            vlm_prefill=report["vlm"]["launches"]["prefill"]["flash_kernel"],
+            vlm_decode=report["vlm"]["launches"]["decode"]["flash_kernel"],
+            vlm_train=report["vlm"]["launches"]["train"]["flash_kernel"],
+            dist=report["dist"]["kernel_launches"]["flash_attention"]))
     table = kernel_table(bsr_cases, flash_cases, model_cases, by_path)
     report["kernels"] = dict(
         phase="kernels", checks_passed={k: len(v) for k, v in checks.items()},

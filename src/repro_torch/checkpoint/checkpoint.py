@@ -15,8 +15,14 @@ dict keys sorted, ``None`` holds no leaf).  bf16 and fp8 leaves are stored
 as their raw bits (``uint16`` / ``uint8``) with the dtype's name in
 ``meta["dtypes"]``.  Restore is shape-checked against the target and puts
 every leaf on the device and dtype of the target's tensor.  Every leaf is
-stored whole; the reference's ``shardings=`` (a JAX mesh to place leaves
-on) has no counterpart on one GPU and is not taken.
+stored whole: a DTensor leaf (a tensor sharded over a ``DeviceMesh``) is
+gathered by every rank of its mesh, and rank 0 of the group writes.
+``restore(..., shardings=)`` places each leaf by a
+:class:`~repro_torch.models.sharding.NamedSharding` (a mesh and a spec),
+the counterpart of the reference's ``shardings=``: restoring onto a
+different mesh than the one that saved (an elastic shrink) is exactly
+this path.  A DTensor target with no sharding given is placed as the
+target is.
 
 A flat checkpoint (:func:`save_flat` / :func:`load_flat`) is a
 ``{key: np.ndarray}`` dict restorable without a target; the sweep server
@@ -86,8 +92,16 @@ def _unflatten_like(tree: Any, leaves: List[Any]) -> Any:
     return build(tree)
 
 
+def _dtensor_class():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
 def _as_numpy(leaf: Any) -> Tuple[np.ndarray, str]:
-    """A leaf's host array as stored on disk, and its dtype's name."""
+    """A leaf's host array as stored on disk, and its dtype's name (a
+    DTensor is gathered whole first: every rank of its mesh calls)."""
+    if isinstance(leaf, _dtensor_class()):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         if t.dtype in _RAW_BITS:
@@ -117,14 +131,24 @@ def _commit(directory: str, step: int, arrays: List[np.ndarray],
 
 def save(directory: str, step: int, tree: Any, keep_last: int = 3) -> str:
     """Write a state dict's checkpoint atomically; prune old ones; return
-    its path."""
+    its path.  With DTensor leaves every rank of the group calls it, and
+    it returns once rank 0 has committed."""
     paths, leaves = _flatten_with_paths(tree)
+    sharded = any(isinstance(leaf, _dtensor_class()) for leaf in leaves)
     stored = [_as_numpy(leaf) for leaf in leaves]
+    if sharded:
+        import torch.distributed as dist
+        if dist.get_rank() != 0:
+            dist.barrier()
+            return os.path.join(directory, f"step_{step:08d}")
     meta = {"step": step, "paths": paths,
             "shapes": [list(a.shape) for a, _ in stored],
             "dtypes": [name for _, name in stored],
             "time": time.time()}
-    return _commit(directory, step, [a for a, _ in stored], meta, keep_last)
+    final = _commit(directory, step, [a for a, _ in stored], meta, keep_last)
+    if sharded:
+        dist.barrier()
+    return final
 
 
 def _prune(directory: str, keep_last: int):
@@ -185,18 +209,32 @@ def _to_tensor(arr: np.ndarray, saved_dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(directory: str, step: int, target_tree: Any) -> Any:
+def restore(directory: str, step: int, target_tree: Any,
+            shardings: Any = None) -> Any:
     """Restore into the structure of ``target_tree`` (a state dict): each
     leaf is looked up by path (a missing one raises ``KeyError``), checked
     against the target's shape (a mismatch raises ``ValueError``) and put
-    on the target tensor's device and dtype."""
+    on the target tensor's device and dtype.  ``shardings``, a tree shaped
+    like the target with :class:`~repro_torch.models.sharding.
+    NamedSharding` leaves, places each leaf on its mesh as a DTensor
+    (every rank reads the file; a rank outside the mesh gets an empty
+    shard)."""
+    from ..models.sharding import NamedSharding
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     t_paths, t_leaves = _flatten_with_paths(target_tree)
+    if shardings is None:
+        sh_leaves = [None] * len(t_leaves)
+    else:
+        _, sh_leaves = _flatten_with_paths(shardings)
+        if len(sh_leaves) != len(t_leaves):
+            raise ValueError(f"shardings hold {len(sh_leaves)} leaves, the "
+                             f"target {len(t_leaves)}")
+    dtensor = _dtensor_class()
     by_path = {p: i for i, p in enumerate(meta["paths"])}
     out_leaves = []
-    for tp, tl in zip(t_paths, t_leaves):
+    for tp, tl, sh in zip(t_paths, t_leaves, sh_leaves):
         if tp not in by_path:
             raise KeyError(f"checkpoint missing leaf {tp}")
         i = by_path[tp]
@@ -207,7 +245,16 @@ def restore(directory: str, step: int, target_tree: Any) -> Any:
             raise ValueError(f"{tp}: checkpoint shape {arr.shape} != "
                              f"target {want}")
         t = _to_tensor(arr, meta["dtypes"][i])
-        if isinstance(tl, torch.Tensor):
+        if sh is None and isinstance(tl, dtensor):
+            sh = (tl.device_mesh, tl.placements)
+        elif isinstance(sh, NamedSharding):
+            sh = (sh.mesh, sh.placements)
+        if sh is not None:
+            from torch.distributed.tensor import distribute_tensor
+            mesh, places = sh
+            t = t.to(device=mesh.device_type, dtype=tl.dtype)
+            t = distribute_tensor(t, mesh, places, src_data_rank=None)
+        elif isinstance(tl, torch.Tensor):
             t = t.to(device=tl.device, dtype=tl.dtype)
         else:
             t = t.to(dtype=torch.from_numpy(np.asarray(tl)).dtype)

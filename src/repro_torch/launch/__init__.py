@@ -1,3 +1,4 @@
 """Entry points: ``python -m repro_torch.launch.serve decode`` (the LM
-serving loop) and ``python -m repro_torch.launch.serve sweep`` (the sweep
-server)."""
+serving loop), ``python -m repro_torch.launch.serve sweep`` (the sweep
+server) and ``python -m repro_torch.launch.train`` (training, over a
+mesh of processes with ``--mesh``)."""

@@ -5,13 +5,13 @@ Two modes, dispatched on the first argument:
 * ``decode`` — the batched LLM serving driver: prefill + greedy decode
   loop with KV cache (or recurrent state) over synthetic prompts;
   reports tokens/s and validates the cache path end to end.  The block
-  kinds of ``models.model.KINDS`` (the dense decoders, the MoE ones,
-  xLSTM, zamba2's Mamba-2 with its shared attention, the
-  encoder-decoder): an encoder-decoder's encoder runs once on synthetic
-  frame embeddings drawn after the prompts, as the reference draws them,
-  and fills the cross-attention caches.  An arch that needs the vision
-  frontend or M-RoPE exits non-zero naming the ROADMAP Queue 1 item
-  that brings it (``Model.unported``).
+  kinds of ``models.model.KINDS``, every config of ``configs/archs.py``
+  (the dense decoders, qwen2-vl with M-RoPE, the MoE ones, xLSTM,
+  zamba2's Mamba-2 with its shared attention, the encoder-decoder): an
+  encoder-decoder's encoder runs once on synthetic frame embeddings drawn
+  after the prompts, as the reference draws them, and fills the
+  cross-attention caches; qwen2-vl's prompt is text only, as the
+  reference's CLI feeds it, rotated by M-RoPE at every position.
 
       PYTHONPATH=src python -m repro_torch.launch.serve decode \\
           --arch mistral-nemo-12b --batch 4 --prompt-len 64 --gen 32
@@ -21,6 +21,8 @@ Two modes, dispatched on the first argument:
           --arch gemma3-12b --smoke --device cpu
       PYTHONPATH=src python -m repro_torch.launch.serve decode \\
           --arch seamless-m4t-large-v2 --smoke --device cpu
+      PYTHONPATH=src python -m repro_torch.launch.serve decode \\
+          --arch qwen2-vl-7b --smoke --device cpu
 
 * ``sweep`` — the persistent sweep server
   (:mod:`repro_torch.launch.sweep_serve`): accepts streaming (workload,
@@ -52,8 +54,7 @@ usage: python -m repro_torch.launch.serve <mode> [mode options]
 
 modes:
   decode   batched LLM serving driver (prefill + greedy decode loop);
-           options: --arch --smoke --batch --prompt-len --gen --device;
-           no vision (M-RoPE) arch yet
+           options: --arch --smoke --batch --prompt-len --gen --device
   sweep    persistent accelerator-search sweep server (query coalescing,
            checkpointed populations, crash recovery); options: --host
            --port --checkpoint-dir --checkpoint-every --max-restarts

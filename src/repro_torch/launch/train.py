@@ -3,7 +3,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch mistral-nemo-12b --steps 200 --batch 8 --seq 256 \\
-        [--smoke] [--ckpt-dir ckpt/] [--microbatches 2] [--device cpu]
+        [--smoke] [--ckpt-dir ckpt/] [--microbatches 2] [--device cpu] \\
+        [--mesh 2x4]
 
 Composes the deterministic, seekable synthetic data pipeline, the model
 (every block under ``cfg.remat``), AdamW with its schedule and clipping,
@@ -12,14 +13,23 @@ step-time straggler monitor.  The flags and printed lines are the
 reference's, plus ``--device`` (default: the GPU, failing where there is
 none); the default arch is the reference's, ``xlstm-350m``.  Every key of
 a pipeline's batch goes to the device and into ``Model.loss_fn`` (an
-encoder-decoder's ``enc_embeds`` too), whose total carries the MoE
-blocks' balance loss.  Refused, with exit code 2 and the reason on
-stderr, before anything is built: an arch that needs what is not ported
-(the vision frontend and M-RoPE, ROADMAP Queue 1 item 7), a ``--mesh``
-other than ``1`` or ``1x1`` (sharding, item 8), and a missing device.
+encoder-decoder's ``enc_embeds`` too, a vision-language model's
+``frontend``), whose total carries the MoE blocks' balance loss.
+
+``--mesh DxM`` (``D`` alone means ``Dx1``) trains over a (data, model)
+``DeviceMesh`` of D·M ranks, one process per device, which the CLI
+starts itself (``distributed.launch.spawn``; a world of one runs in this
+process): gloo on the CPU, NCCL on the GPUs, rank r on GPU r.  The
+parameters are placed by ``Model.param_specs()``, the moments by ZeRO-1,
+the batch on ("data",) (``steps.build_sharded_train_step``); rank 0
+prints the lines an un-meshed run prints.  Refused, with exit code 2 and
+the reason on stderr, before anything is built: an arch with a block
+kind the port does not have, a missing device, and a mesh of more ranks
+than GPUs.
 
 :func:`run_train` is the loop itself, for a caller that holds a
-:class:`~repro_torch.models.config.ModelConfig` (a depth-reduced one, say).
+:class:`~repro_torch.models.config.ModelConfig` (a depth-reduced one, say),
+and, with ``mesh=``, a process group.
 """
 from __future__ import annotations
 
@@ -27,12 +37,22 @@ import argparse
 import json
 import sys
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-MESH_OK = (None, "1", "1x1")
+
+def parse_mesh(text: str) -> Tuple[int, int]:
+    """``"2x4"`` -> (2, 4), ``"2"`` -> (2, 1): the (data, model) shape."""
+    try:
+        dims = tuple(int(x) for x in text.lower().split("x"))
+    except ValueError:
+        dims = ()
+    if len(dims) not in (1, 2) or min(dims) < 1:
+        raise ValueError(f"--mesh {text!r}: want D or DxM, positive "
+                         f"integers")
+    return dims if len(dims) == 2 else (dims[0], 1)
 
 
 def _copy_into(live: Any, restored: Any) -> Any:
@@ -51,9 +71,12 @@ def run_train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
               device=None, ckpt_dir: Optional[str] = None,
               ckpt_every: int = 50, microbatches: int = 1,
               log_every: int = 10, inject_failure_at: Optional[int] = None,
-              log: Callable[[str], None] = print) -> Dict[str, Any]:
+              log: Callable[[str], None] = print,
+              mesh=None) -> Dict[str, Any]:
     """Train ``cfg`` from weights drawn with seed 0 on ``device`` for
-    ``steps`` steps of ``batch`` x ``seq`` synthetic tokens.
+    ``steps`` steps of ``batch`` x ``seq`` synthetic tokens; with a
+    ``mesh`` (a ("data", "model") ``DeviceMesh`` over the process group,
+    every rank calling), by ``steps.build_sharded_train_step``.
 
     Returns ``losses`` (one per step run, replayed steps included),
     ``step_s`` (host seconds of each, ended by reading its loss), the
@@ -66,7 +89,7 @@ def run_train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
     from ..models.model import Model
     from ..optim import optimizer as opt
     from ..runtime.fault_tolerance import StepMonitor, Supervisor
-    from .steps import build_train_step
+    from .steps import build_sharded_train_step, build_train_step
 
     device = resolve_device(device)
     shape = ShapeSpec("cli", seq, batch, "train")
@@ -78,8 +101,13 @@ def run_train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     ostate = opt.init(params, ocfg)
-    train_step = build_train_step(model, ocfg, ostate,
-                                  n_microbatches=microbatches)
+    if mesh is None:
+        train_step = build_train_step(model, ocfg, ostate,
+                                      n_microbatches=microbatches)
+    else:
+        train_step = build_sharded_train_step(model, ocfg, ostate, mesh,
+                                              n_microbatches=microbatches)
+        params = train_step.master          # the sharded copies
     state = dict(params=params, step=ostate.step, mu=ostate.mu,
                  nu=ostate.nu)
     monitor = StepMonitor()
@@ -129,6 +157,22 @@ def run_train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
                 opt_state=ostate, train_step=train_step, data=data)
 
 
+def _train_rank(cfg, shape: Tuple[int, int], kwargs: Dict[str, Any]):
+    """One rank of a meshed run (inside its process group): returns the
+    losses; rank 0 logs."""
+    import torch.distributed as dist
+
+    from .mesh import make_test_mesh
+    rank = dist.get_rank()
+    device = torch.device("cuda", rank) if dist.get_backend() == "nccl" \
+        else torch.device("cpu")
+    mesh = make_test_mesh(shape, ("data", "model"))
+    log = (lambda line: print(line, flush=True)) if rank == 0 else \
+        (lambda line: None)
+    return run_train(cfg, device=device, mesh=mesh, log=log,
+                     **kwargs)["losses"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.train",
@@ -143,7 +187,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", default=None,
-                    help="only 1 or 1x1: sharding is not ported")
+                    help="DxM: a (data, model) mesh of D*M ranks, one "
+                         "process per device (D alone: Dx1)")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--inject-failure-at", type=int, default=None,
@@ -161,23 +206,34 @@ def main(argv=None) -> int:
     if reason:
         print(f"train: {reason}", file=sys.stderr)
         return 2
-    if args.mesh not in MESH_OK:
-        print(f"train: --mesh {args.mesh} needs sharding over several "
-              f"devices, which repro_torch does not have yet (ROADMAP "
-              f"Queue 1 item 8); use --mesh 1 or leave it out",
-              file=sys.stderr)
-        return 2
     try:
+        shape = parse_mesh(args.mesh) if args.mesh else None
         device = resolve_device(args.device)
-    except RuntimeError as e:
+    except (RuntimeError, ValueError) as e:
         print(f"train: {e}", file=sys.stderr)
         return 2
-    run_train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
-              lr=args.lr, device=device, ckpt_dir=args.ckpt_dir,
-              ckpt_every=args.ckpt_every, microbatches=args.microbatches,
-              log_every=args.log_every,
-              inject_failure_at=args.inject_failure_at,
-              log=lambda line: print(line, flush=True))
+    kwargs = dict(steps=args.steps, batch=args.batch, seq=args.seq,
+                  lr=args.lr, ckpt_dir=args.ckpt_dir,
+                  ckpt_every=args.ckpt_every, microbatches=args.microbatches,
+                  log_every=args.log_every,
+                  inject_failure_at=args.inject_failure_at)
+    if shape is None:
+        run_train(cfg, device=device,
+                  log=lambda line: print(line, flush=True), **kwargs)
+        return 0
+    from ..distributed.launch import process_group, spawn
+    from .train import _train_rank     # by its module's name, not __main__
+    world = shape[0] * shape[1]
+    if device.type == "cuda" and torch.cuda.device_count() < world:
+        print(f"train: --mesh {args.mesh} needs {world} GPUs, one process "
+              f"each; {torch.cuda.device_count()} visible", file=sys.stderr)
+        return 2
+    if world == 1:
+        with process_group(device.type):
+            _train_rank(cfg, shape, kwargs)
+    else:
+        spawn(_train_rank, world, (cfg, shape, kwargs),
+              device_type=device.type, timeout=24 * 3600.0)
     return 0
 
 

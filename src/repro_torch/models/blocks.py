@@ -6,7 +6,9 @@ attention + mixture-of-experts block (``moe``), Mamba-2 (``mamba2``) and
 the xLSTM's ``mlstm`` and ``slstm``.
 
 Each block is an ``nn.Module`` with ``forward(x, off, force_chunked)``,
-``init_cache(batch, max_len)`` and ``decode(cache, x_t, pos)``; ``decode``
+``init_cache(batch, max_len)``, ``decode(cache, x_t, pos)`` and
+``param_specs()`` (the reference builder's partition specs, by parameter
+name: Megatron's tensor-parallel split over "model"); ``decode``
 updates ``cache`` (a dict) in place or replaces its entries, as the
 reference's returned cache would have them.  Every ``forward`` returns
 ``(x, aux)``: ``aux`` is ``MoeBlock``'s balance loss, an fp32 scalar,
@@ -31,7 +33,9 @@ from . import attention as attn_lib
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .config import ModelConfig
-from .layers import _init_dense, apply_rope, dtype_of, mlp, rms_norm
+from .sharding import P, mdl
+from .layers import (_init_dense, apply_m_rope, apply_rope, dtype_of, mlp,
+                     rms_norm)
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -91,11 +95,27 @@ class _MlpParams(nn.Module):
         self.w2 = _param(_init_dense(gen, d_ff, d, dt))
 
 
+def _attn_specs(cfg: ModelConfig, prefix: str) -> Dict[str, P]:
+    """Megatron's column/row split of ``_AttnParams`` over "model"."""
+    q, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    return {f"{prefix}.wq": P(None, mdl(q)), f"{prefix}.wk": P(None, mdl(kv)),
+            f"{prefix}.wv": P(None, mdl(kv)), f"{prefix}.wo": P(mdl(q), None)}
+
+
+def _mlp_specs(cfg: ModelConfig, prefix: str, d_ff: int) -> Dict[str, P]:
+    out = {f"{prefix}.w1": P(None, mdl(d_ff))}
+    if cfg.mlp_kind == "swiglu":
+        out[f"{prefix}.w3"] = P(None, mdl(d_ff))
+    out[f"{prefix}.w2"] = P(mdl(d_ff), None)
+    return out
+
+
 def _qkv(cfg: ModelConfig, p: _AttnParams, x: torch.Tensor,
          positions: Optional[torch.Tensor] = None,
          x_kv: Optional[torch.Tensor] = None):
     """q from ``x``, k/v from ``x_kv`` (default ``x``); RoPE at
-    ``positions`` when they are given (self-attention only)."""
+    ``positions`` when they are given (self-attention only), M-RoPE for
+    ``cfg.m_rope``."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     xk = x if x_kv is None else x_kv
@@ -103,8 +123,9 @@ def _qkv(cfg: ModelConfig, p: _AttnParams, x: torch.Tensor,
     k = (xk @ p.wk).reshape(b, xk.shape[1], kv, hd)
     v = (xk @ p.wv).reshape(b, xk.shape[1], kv, hd)
     if positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        rope = apply_m_rope if cfg.m_rope else apply_rope
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -156,6 +177,14 @@ class AttnBlock(nn.Module):
         if cross:
             self.lnx = _ones(cfg, generator)
             self.xattn = _AttnParams(cfg, generator)
+
+    def param_specs(self) -> Dict[str, P]:
+        """The reference's ``build_attn`` specs, by parameter name."""
+        out = dict(ln1=P(None), **_attn_specs(self.cfg, "attn"), ln2=P(None),
+                   **_mlp_specs(self.cfg, "mlp", self.cfg.d_ff))
+        if self.cross:
+            out.update(lnx=P(None), **_attn_specs(self.cfg, "xattn"))
+        return out
 
     @property
     def window(self):
@@ -269,6 +298,18 @@ class MoeBlock(nn.Module):
         else:
             self.dense = None
 
+    def param_specs(self) -> Dict[str, P]:
+        """The reference's ``build_moe`` specs: experts over "model", their
+        hidden width over "data"."""
+        cfg = self.cfg
+        e = mdl(cfg.n_experts)
+        out = {"ln1": P(None), **_attn_specs(cfg, "attn"), "ln2": P(None),
+               "moe.wg": P(None, e), "moe.w1": P(e, None, "data"),
+               "moe.w3": P(e, None, "data"), "moe.w2": P(e, "data", None)}
+        if self.dense is not None:
+            out.update(_mlp_specs(cfg, "dense", cfg.d_ff))
+        return out
+
     def _ffn(self, h: torch.Tensor, grouped: bool):
         cfg = self.cfg
         w = dict(self.moe.named_parameters())
@@ -355,6 +396,12 @@ class Mamba2Block(nn.Module):
         self.d_skip = _param(torch.ones((nh,), **f32))
         self.dt_bias = _param(torch.zeros((nh,), **f32))
         self.out_proj = _param(_init_dense(gen, d_in, d, dt))
+
+    def param_specs(self) -> Dict[str, P]:
+        d_in, _, nh, n, _ = _mamba_dims(self.cfg)
+        return dict(ln=P(None), in_proj=P(None, mdl(2 * d_in + 2 * n + nh)),
+                    conv_w=P(None, None), a_log=P(None), d_skip=P(None),
+                    dt_bias=P(None), out_proj=P(mdl(d_in), None))
 
     def _project(self, x):
         d_in, _, _, _, conv_dim = _mamba_dims(self.cfg)
@@ -445,6 +492,12 @@ class MlstmBlock(nn.Module):
         self.wif = _param(_init_dense(gen, dp, 2 * h, dt))
         self.down = _param(_init_dense(gen, dp, d, dt))
 
+    def param_specs(self) -> Dict[str, P]:
+        dp, _, _ = _mlstm_dims(self.cfg)
+        return dict(ln=P(None), up=P(None, mdl(2 * dp)), wq=P(None, mdl(dp)),
+                    wk=P(None, mdl(dp)), wv=P(None, mdl(dp)),
+                    wif=P(None, None), down=P(mdl(dp), None))
+
     def _qkv_gates(self, x, shape):
         dp, h, _ = _mlstm_dims(self.cfg)
         up = rms_norm(x, self.ln) @ self.up
@@ -510,6 +563,12 @@ class SlstmBlock(nn.Module):
         self.wx = _param(_init_dense(gen, d, 4 * d, dt))
         self.r = _randn(gen, (4, h, hd, hd), 0.3 / math.sqrt(hd), dt)
         self.out = _param(_init_dense(gen, d, d, dt))
+
+    def param_specs(self) -> Dict[str, P]:
+        d = self.cfg.d_model
+        return dict(ln=P(None), wx=P(None, mdl(4 * d)),
+                    r=P(None, None, None, mdl(d // self.cfg.n_heads)),
+                    out=P(None, mdl(d)))
 
     def _parts(self, x):
         b, s, d = x.shape

@@ -12,9 +12,11 @@ blocks ``[n_enc_layers, ...]`` beside ``enc_ln``.
 The reference's gradients and its ``OptState.mu`` / ``nu`` have that
 shape too.  bf16 leaves cross as their raw bits (numpy has no bf16 of
 its own).  Every function visits the leaves in one order
-(:func:`_named_leaves`): the model's parameters, the blocks in the order
+(:func:`_named_slots`): the model's parameters, the blocks in the order
 of the reference's scan, a shared block at its first position only,
 then the encoder's blocks (the order of ``model.named_parameters()``).
+:func:`specs_from_jax` reads the reference's ``param_specs()`` tree the
+same way.
 """
 from __future__ import annotations
 
@@ -49,16 +51,18 @@ def _leaf(tree: Mapping[str, Any], path: str) -> np.ndarray:
     return tree
 
 
-def _named_leaves(model: Model, tree: Mapping[str, Any]
-                  ) -> Iterator[Tuple[str, torch.Tensor, np.ndarray, str]]:
-    """``(port name, port parameter, tree leaf, tree path)`` for every
-    parameter of ``model``, once each (the names of
-    ``model.named_parameters()``)."""
+def _named_slots(model: Model, tree: Mapping[str, Any]
+                 ) -> Iterator[Tuple[str, torch.Tensor, Any, str,
+                                     Tuple[int, ...]]]:
+    """``(port name, port parameter, tree leaf, tree path, index)`` for
+    every parameter of ``model``, once each (the names of
+    ``model.named_parameters()``): ``leaf[index]`` is the parameter's
+    slice of a stacked leaf (``index`` is ``()`` for an unstacked one)."""
     cfg = model.cfg
     for name in ("embed", "unembed", "final_ln", "enc_ln"):
         p = getattr(model, name)
         if p is not None:
-            yield name, p, tree[name], name
+            yield name, p, tree[name], name, ()
     blocks = iter(enumerate(model.blocks))
     for s in range(cfg.n_super):
         for i, b in enumerate(cfg.pattern):
@@ -69,13 +73,23 @@ def _named_leaves(model: Model, tree: Mapping[str, Any]
                     continue                # yielded at its first use
                 for name, p in blk.named_parameters():
                     leaf, path = _leaf(tree[f"g{i}"], name), f"g{i}.{name}"
-                    if not shared:
-                        leaf, path = leaf[s, r], f"{path}[{s}, {r}]"
-                    yield f"blocks.{n}.{name}", p, leaf, path
+                    idx = () if shared else (s, r)
+                    yield f"blocks.{n}.{name}", p, leaf, path, idx
     for n, blk in enumerate(model.enc):
         for name, p in blk.named_parameters():
-            yield (f"enc.{n}.{name}", p, _leaf(tree["enc"], name)[n],
-                   f"enc.{name}[{n}]")
+            yield (f"enc.{n}.{name}", p, _leaf(tree["enc"], name),
+                   f"enc.{name}", (n,))
+
+
+def _named_leaves(model: Model, tree: Mapping[str, Any]
+                  ) -> Iterator[Tuple[str, torch.Tensor, np.ndarray, str]]:
+    """``(port name, port parameter, tree leaf, tree path)`` for every
+    parameter of ``model``, the leaf sliced to the parameter's layer and
+    its path naming the slice (``g0.attn.wq[1, 0]``)."""
+    for name, p, leaf, path, idx in _named_slots(model, tree):
+        if idx:
+            leaf, path = leaf[idx], f"{path}{list(idx)}"
+        yield name, p, leaf, path
 
 
 @torch.no_grad()
@@ -110,3 +124,13 @@ def opt_state_from_jax(model: Model, state: Any) -> OptState:
     step = torch.from_numpy(np.array(state.step, dtype=np.int32)).to(dev)
     return OptState(step=step, mu=named_from_jax(model, state.mu),
                     nu=named_from_jax(model, state.nu))
+
+
+def specs_from_jax(model: Model, specs: Mapping[str, Any]
+                   ) -> Dict[str, Tuple]:
+    """The reference's ``param_specs()`` tree as ``{port parameter name:
+    tuple}``, each spec without the leading entries of the axes the
+    reference stacks its layers on (which the port's parameters do not
+    have)."""
+    return {name: tuple(leaf)[len(idx):]
+            for name, _, leaf, _, idx in _named_slots(model, specs)}

@@ -5,8 +5,9 @@ Weights keep the reference's ``[d_in, d_out]`` layout, applied as
 ``x @ w``.  Every op computes in the dtype and precision the reference
 does, step for step: RMSNorm reduces in fp32 and rounds twice, RoPE takes
 its angles in fp32, the GELU is the tanh approximation (``jax.nn.gelu``'s
-default), ``softmax_xent`` reduces in fp32.  Not here yet:
-``apply_m_rope`` (qwen2-vl, ROADMAP Queue 1 item 7).
+default), ``softmax_xent`` reduces in fp32.  ``apply_m_rope`` is
+Qwen2-VL's multimodal RoPE: three position streams, each rotating its own
+section of the frequencies.
 """
 from __future__ import annotations
 
@@ -76,6 +77,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
     ang = positions[..., None].float() * freqs               # [..., S, hd/2]
     cos = torch.cos(ang)[..., None, :]                       # [..., S, 1, hd/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_m_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                 sections=(2, 1, 1)) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  The hd/2 frequencies are split into
+    (temporal, height, width) sections of ``s·hd // (2·Σs)`` each (the
+    last takes what is left), and each section is rotated by its own
+    position stream.  x: [..., S, H, hd]; positions: [..., S, 3], or
+    [..., S], which is used for all three streams (the text-only case)."""
+    if positions.dim() == x.dim() - 2:                   # [..., S] -> 3 copies
+        positions = torch.stack([positions] * 3, dim=-1)
+    hd = x.shape[-1]
+    total = sum(sections)
+    splits = [s * hd // (2 * total) for s in sections]
+    freqs = rope_freqs(hd, theta, x.device)              # (hd/2,)
+    bounds = [0] + [sum(splits[:i + 1]) for i in range(len(splits) - 1)] \
+        + [hd // 2]
+    ang = torch.cat([positions[..., i:i + 1].float() * freqs[a:b]
+                     for i, (a, b) in enumerate(zip(bounds, bounds[1:]))],
+                    dim=-1)                              # [..., S, hd/2]
+    cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -22,12 +22,21 @@ every ``attn_cross`` block attends to.
 Public surface::
 
     m = Model(cfg, device=None, generator=None)   # weights built on device
-    logits = m(tokens[, enc_embeds])               # prefill forward [B,S,V]
+    logits = m(tokens[, enc_embeds][, frontend=])  # prefill forward [B,S,V]
     cache = m.init_cache(batch, max_len[, enc_embeds])  # one per position
     m.encode_into(cache, enc_embeds)               # the encoder, once
     logits = m.decode_step(cache, tokens, pos)     # [B,1,V]; cache updated
     m.requires_grad_(True)                         # make it trainable
-    loss, aux = m.loss_fn(batch)     # {"tokens", "labels"[, "enc_embeds"]}
+    loss, aux = m.loss_fn(batch)  # {"tokens", "labels"[, "enc_embeds"]
+                                  #  [, "frontend"]}
+    specs = m.param_specs()       # {parameter name: sharding.P}
+
+A vision-language model (``cfg.frontend == "vision"``, qwen2-vl) takes
+the frontend's output ``frontend`` [B,nf,d] (the vision tower's stub:
+precomputed patch embeddings) ahead of the token embeddings, so its
+positions run 0..nf+S-1 through every layer (M-RoPE, ``cfg.m_rope``,
+with all three streams at the token index); ``loss_fn`` drops the ``nf``
+frontend positions before the cross entropy.
 
 ``loss_fn``'s total is the cross entropy plus ``0.01·aux``, where ``aux``
 sums the MoE blocks' balance losses in block order (0 without them); it
@@ -45,10 +54,9 @@ backward pass, ``"dots"`` keeps the outputs of its matrix products
 everything.  A recomputed block calls :func:`attention` again, so
 ``attention.calls`` counts it twice.
 
-The rest of the LM substrate (the vision frontend and M-RoPE) is not
-ported yet; :func:`unported` names what a config needs of it and the
-ROADMAP Queue 1 item that brings it, and :class:`Model` refuses such a
-config.
+:func:`unported` names a block kind the port does not have (every
+config of ``configs/archs.py`` has only kinds it has), and
+:class:`Model` refuses such a config.
 
 One fault of the reference is not copied: its ``init_cache`` projects
 the cross-attention's K/V with the decoder's *self*-attention weights
@@ -66,6 +74,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ..device import DeviceLike, resolve_device
+from . import sharding
 from .blocks import (AttnBlock, Mamba2Block, MlstmBlock, MoeBlock,
                      SlstmBlock, _ones, _param)
 from .config import BlockSpec, ModelConfig
@@ -92,18 +101,14 @@ def _entry_kind(b: BlockSpec) -> str:
 
 
 def unported(cfg: ModelConfig) -> Optional[str]:
-    """Why :class:`Model` cannot build ``cfg`` yet, or ``None``: each
-    missing part with the ROADMAP Queue 1 item that brings it."""
+    """Why :class:`Model` cannot build ``cfg``, or ``None``: the block
+    kinds of its pattern that the port does not have."""
     missing = [f"block kind {b.kind!r}" for b in cfg.pattern
                if b.kind not in KINDS]
-    if cfg.frontend == "vision":
-        missing.append("the vision frontend (ROADMAP Queue 1 item 7)")
-    if cfg.m_rope:
-        missing.append("M-RoPE (ROADMAP Queue 1 item 7)")
     if not missing:
         return None
     return (f"{cfg.name} needs {', '.join(dict.fromkeys(missing))}, which "
-            f"repro_torch does not have yet: the port's LM substrate has "
+            f"repro_torch does not have: the port's LM substrate has "
             f"the block kinds {', '.join(KINDS)} only")
 
 
@@ -196,13 +201,17 @@ class Model(nn.Module):
 
     def forward_with_aux(self, tokens: torch.Tensor,
                          enc_embeds: Optional[torch.Tensor] = None,
+                         frontend: Optional[torch.Tensor] = None,
                          force_chunked: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens: [B,S] integer -> ``(logits [B,S,V], aux)``, ``aux`` the
-        fp32 sum of the blocks' balance losses in block order.
+        """tokens: [B,S] integer -> ``(logits [B,nf+S,V], aux)``, ``aux``
+        the fp32 sum of the blocks' balance losses in block order.
         ``enc_embeds`` [B,S_enc,d] runs the encoder, whose output the
-        cross blocks attend to."""
+        cross blocks attend to; ``frontend`` [B,nf,d] (cast to the
+        compute dtype) goes ahead of the token embeddings."""
         x = self.embed[tokens].to(dtype_of(self.cfg.compute_dtype))
+        if frontend is not None:
+            x = torch.cat([frontend.to(x.dtype), x], dim=1)
         run = self._run()
         extra = ()
         if enc_embeds is not None:
@@ -215,24 +224,58 @@ class Model(nn.Module):
 
     def forward(self, tokens: torch.Tensor,
                 enc_embeds: Optional[torch.Tensor] = None,
+                frontend: Optional[torch.Tensor] = None,
                 force_chunked: bool = False) -> torch.Tensor:
-        """tokens: [B,S] integer -> logits [B,S,V].  ``force_chunked`` puts
+        """tokens: [B,S] integer -> logits [B,nf+S,V] (``nf`` the
+        ``frontend``'s positions, 0 without).  ``force_chunked`` puts
         every attention on the chunked route (to hold the flash route
         against it).  Blocks run under ``cfg.remat`` while autograd
         records and the weights need a gradient."""
-        return self.forward_with_aux(tokens, enc_embeds, force_chunked)[0]
+        return self.forward_with_aux(tokens, enc_embeds, frontend,
+                                     force_chunked)[0]
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """``batch``: ``{"tokens": [B,S], "labels": [B,S]}`` and, for an
-        encoder-decoder, ``"enc_embeds"`` -> ``(total, {"xent", "aux"})``,
-        the reference's ``loss_fn``: the mean cross entropy (softcapped by
-        ``cfg.logit_softcap``) plus ``0.01·aux``."""
+        encoder-decoder, ``"enc_embeds"``, for a vision-language model,
+        ``"frontend"`` [B,nf,d] -> ``(total, {"xent", "aux"})``, the
+        reference's ``loss_fn``: the mean cross entropy over the text
+        positions (softcapped by ``cfg.logit_softcap``) plus
+        ``0.01·aux``."""
+        frontend = batch.get("frontend")
         logits, aux = self.forward_with_aux(batch["tokens"],
-                                            batch.get("enc_embeds"))
+                                            batch.get("enc_embeds"),
+                                            frontend)
+        if frontend is not None:
+            logits = logits[:, frontend.shape[1]:]
         loss = softmax_xent(logits, batch["labels"], self.cfg.logit_softcap)
         total = loss + 0.01 * aux
         return total, dict(xent=loss, aux=aux)
+
+    def param_specs(self) -> Dict[str, sharding.P]:
+        """One :class:`~repro_torch.models.sharding.P` per named parameter
+        (a shared block's under its first position, as
+        ``named_parameters()`` lists it): the reference's
+        ``param_specs()`` leaf for leaf, without its stacked layer axes."""
+        cfg = self.cfg
+        mdl = sharding.mdl
+        specs = {"embed": sharding.P(mdl(cfg.vocab_size), None)
+                 if cfg.embed_shard == "vocab" else
+                 sharding.P(None, mdl(cfg.d_model))}
+        if self.unembed is not None:
+            specs["unembed"] = sharding.P(None, mdl(cfg.vocab_size))
+        specs["final_ln"] = sharding.P(None)
+        if self.enc_ln is not None:
+            specs["enc_ln"] = sharding.P(None)
+        seen = set()
+        for prefix, blocks in (("blocks", self.blocks), ("enc", self.enc)):
+            for n, blk in enumerate(blocks):
+                if id(blk) in seen:
+                    continue
+                seen.add(id(blk))
+                for name, spec in blk.param_specs().items():
+                    specs[f"{prefix}.{n}.{name}"] = spec
+        return {n: specs[n] for n, _ in self.named_parameters()}
 
     def init_cache(self, batch: int, max_len: int,
                    enc_embeds: Optional[torch.Tensor] = None

@@ -1,1 +1,2 @@
-"""The optimizer: AdamW with schedule and clipping."""
+"""The optimizer (AdamW with schedule and clipping, its ZeRO-1 specs) and
+gradient compression."""

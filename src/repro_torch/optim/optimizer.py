@@ -11,9 +11,12 @@ and the moments in place under ``torch.no_grad()``, and the step counter
 is a device tensor, so a step needs no host sync.
 
 Moments are fp32, or bf16 under ``moment_dtype="bfloat16"`` (the
-reference's low-memory mode).  Not here: ``zero1_spec`` and
-``opt_state_specs``, which shard the state over a mesh's data axis and
-mean nothing without a process group (ROADMAP Queue 1 item 8).
+reference's low-memory mode).  :func:`zero1_spec` / :func:`opt_state_specs`
+are the reference's ZeRO-1 specs: each moment takes its parameter's spec
+with the largest still-unsharded axis sharded over "data" where it
+divides; ``launch.steps.build_sharded_train_step`` places the moments by
+them and updates each rank's slice with :func:`update_leaf`, the same
+arithmetic :func:`apply` runs on a whole leaf.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import math
 from typing import Dict, Mapping, NamedTuple, Tuple
 
 import torch
+
+from ..models.sharding import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +79,46 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+class StepScalars(NamedTuple):
+    """What every leaf's update of one step shares (device scalars)."""
+    scale: torch.Tensor     # the global-norm clip factor
+    lr: torch.Tensor
+    bc1: torch.Tensor       # bias corrections 1 - b**step
+    bc2: torch.Tensor
+
+
+@torch.no_grad()
+def step_scalars(state: OptState, gnorm: torch.Tensor,
+                 cfg: OptConfig) -> StepScalars:
+    """Advance ``state.step`` by one and return the step's clip factor,
+    lr and bias corrections for a gradient of global norm ``gnorm``."""
+    state.step.add_(1)
+    stepf = state.step.float()
+    b1, b2 = cfg.betas
+    return StepScalars(
+        scale=torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0),
+        lr=schedule(state.step, cfg), bc1=1 - b1 ** stepf,
+        bc2=1 - b2 ** stepf)
+
+
+@torch.no_grad()
+def update_leaf(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                v: torch.Tensor, k: StepScalars, cfg: OptConfig) -> None:
+    """One AdamW update of a parameter ``p`` (or any slice of it) and its
+    moments ``m``, ``v`` (the same slice) in place, in fp32."""
+    b1, b2 = cfg.betas
+    g = g.float() * k.scale
+    m2 = b1 * m.float() + (1 - b1) * g
+    v2 = b2 * v.float() + (1 - b2) * g * g
+    del g
+    delta = (m2 / k.bc1) / (torch.sqrt(v2 / k.bc2) + cfg.eps)
+    m.copy_(m2)
+    v.copy_(v2)
+    del m2, v2
+    delta = delta + cfg.weight_decay * p.float()
+    p.copy_(p.float() - k.lr * delta)
+
+
 @torch.no_grad()
 def apply(params: Mapping[str, torch.Tensor],
           grads: Mapping[str, torch.Tensor], state: OptState,
@@ -81,25 +126,43 @@ def apply(params: Mapping[str, torch.Tensor],
     """One AdamW step: ``params``, ``state.mu`` / ``state.nu`` and
     ``state.step`` are updated in place; returns ``{"grad_norm", "lr"}``
     as device scalars."""
-    state.step.add_(1)
-    step = state.step
     gnorm = global_norm(grads[n] for n in params)
-    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    lr = schedule(step, cfg)
-    b1, b2 = cfg.betas
-    stepf = step.float()
-    bc1 = 1 - b1 ** stepf
-    bc2 = 1 - b2 ** stepf
+    k = step_scalars(state, gnorm, cfg)
     for name, p in params.items():
-        m, v = state.mu[name], state.nu[name]
-        g = grads[name].float() * scale
-        m2 = b1 * m.float() + (1 - b1) * g
-        v2 = b2 * v.float() + (1 - b2) * g * g
-        del g
-        delta = (m2 / bc1) / (torch.sqrt(v2 / bc2) + cfg.eps)
-        m.copy_(m2)
-        v.copy_(v2)
-        del m2, v2
-        delta = delta + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
-    return dict(grad_norm=gnorm, lr=lr)
+        update_leaf(p, grads[name], state.mu[name], state.nu[name], k, cfg)
+    return dict(grad_norm=gnorm, lr=k.lr)
+
+
+# ---------------------------------------------------------------- sharding
+
+
+def zero1_spec(spec: P, shape: Tuple[int, ...], data_axis: str = "data",
+               data_size: int = 16) -> P:
+    """ZeRO-1: shard the largest unsharded axis of an optimizer-state
+    tensor over the data axis (if divisible and not already used)."""
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    used = set()
+    for pt in parts:
+        for ax in (pt if isinstance(pt, tuple) else (pt,)):
+            if ax is not None:
+                used.add(ax)
+    if data_axis in used:
+        return P(*parts)
+    best, best_size = None, 0
+    for i, (pt, sz) in enumerate(zip(parts, shape)):
+        if pt is None and sz % data_size == 0 and sz > best_size:
+            best, best_size = i, sz
+    if best is not None:
+        parts[best] = data_axis
+    return P(*parts)
+
+
+def opt_state_specs(param_specs: Mapping[str, P],
+                    param_shapes: Mapping[str, Tuple[int, ...]],
+                    data_size: int = 16) -> OptState:
+    """Specs for an :class:`OptState` over the parameters' specs and
+    shapes (mappings by name): ``step`` replicated, ``mu`` and ``nu``
+    by :func:`zero1_spec`."""
+    mu = {n: zero1_spec(s, tuple(param_shapes[n]), data_size=data_size)
+          for n, s in param_specs.items()}
+    return OptState(step=P(), mu=mu, nu=dict(mu))

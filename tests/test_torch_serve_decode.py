@@ -1,6 +1,6 @@
 """``serve decode`` of the PyTorch port (``repro_torch.launch.serve``) on
 the CPU: the CLI end to end on the smoke configs, its refusals (an
-unported arch, no GPU without ``--device``), the configs registry against
+unknown arch, no GPU without ``--device``), the configs registry against
 the JAX package's, and the decode loop against the reference's on the
 same weights and prompts."""
 import dataclasses
@@ -29,7 +29,7 @@ from repro_torch.models.model import Model, unported
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORTED = ("mistral-nemo-12b", "gemma3-12b", "starcoder2-7b",
           "command-r-35b", "xlstm-350m", "zamba2-2.7b", "arctic-480b",
-          "kimi-k2-1t-a32b", "seamless-m4t-large-v2")
+          "kimi-k2-1t-a32b", "seamless-m4t-large-v2", "qwen2-vl-7b")
 
 
 def _run(args, env_extra=None):
@@ -57,13 +57,13 @@ def test_decode_cli_on_the_cpu(arch):
 
 @pytest.mark.slow
 def test_decode_cli_refuses_an_unported_arch():
-    """``qwen2-vl-7b`` needs the vision frontend and M-RoPE (the MoE
-    arch this test refused before is ported now)."""
-    out = _run(["decode", "--arch", "qwen2-vl-7b", "--smoke",
+    """Every arch of the registry is ported now (the MoE arch, then
+    ``qwen2-vl-7b``, were refused here before): an arch the registry does
+    not have is refused, naming it."""
+    out = _run(["decode", "--arch", "qwen3-vl-8b", "--smoke",
                 "--device", "cpu"])
     assert out.returncode != 0
-    assert "the vision frontend (ROADMAP Queue 1 item 7)" in out.stderr
-    assert "M-RoPE (ROADMAP Queue 1 item 7)" in out.stderr
+    assert "qwen3-vl-8b" in out.stderr
     assert "serve ok" not in out.stdout
 
 
@@ -82,15 +82,17 @@ def test_decode_main_resolves_the_device_before_building(monkeypatch,
 
 
 def test_moe_config_is_refused():
-    """Once the MoE arch's refusal; MoE is ported now, so it holds the
-    one config still refused, ``qwen2-vl-7b`` (the vision frontend and
-    M-RoPE), while the MoE config builds."""
+    """Once the MoE arch's refusal, then ``qwen2-vl-7b``'s (M-RoPE and
+    the vision frontend); both are ported now, so what is refused is a
+    block kind the port does not have."""
+    for arch in ("arctic-480b", "qwen2-vl-7b"):
+        assert unported(smoke_config(arch)) is None
     cfg = smoke_config("qwen2-vl-7b")
-    assert "M-RoPE" in unported(cfg)
-    with pytest.raises(NotImplementedError, match=r"M-RoPE \(ROADMAP Queue 1 "
-                       r"item 7\)"):
+    cfg = dataclasses.replace(cfg, pattern=(dataclasses.replace(
+        cfg.pattern[0], kind="hyena"),))
+    assert "block kind 'hyena'" in unported(cfg)
+    with pytest.raises(NotImplementedError, match="block kind 'hyena'"):
         Model(cfg, device="cpu")
-    assert unported(smoke_config("arctic-480b")) is None
 
 
 @pytest.mark.parametrize("arch", sorted(REF_ARCHS))

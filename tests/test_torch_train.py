@@ -479,17 +479,22 @@ def test_run_train_returns_the_live_state():
     assert np.all(np.isfinite(out["losses"]))
 
 
-@pytest.mark.parametrize("argv,reason", [
-    ([], "no CUDA device"),
-    # once the MoE arch's refusal: kimi is ported, qwen2-vl is not yet
-    (["--arch", "qwen2-vl-7b"], "ROADMAP Queue 1 item 7"),
-    (["--arch", "mistral-nemo-12b", "--smoke", "--mesh", "2x4",
-      "--device", "cpu"], "ROADMAP Queue 1 item 8"),
-    (["--arch", "mistral-nemo-12b"], "no CUDA device"),
+@pytest.mark.parametrize("argv,reason,gpus", [
+    ([], "no CUDA device", 0),
+    # once the MoE arch's refusal, then qwen2-vl's (M-RoPE and the vision
+    # frontend, ported now): without a GPU it is refused for the device
+    (["--arch", "qwen2-vl-7b"], "no CUDA device", 0),
+    # once "not ported"; now a mesh of more ranks than GPUs
+    (["--arch", "mistral-nemo-12b", "--smoke", "--mesh", "2x4"],
+     "--mesh 2x4 needs 8 GPUs, one process each; 1 visible", 1),
+    (["--arch", "mistral-nemo-12b"], "no CUDA device", 0),
 ], ids=["xlstm-default", "kimi-moe", "mesh-2x4", "no-gpu"])
-def test_cli_refusals_name_the_reason(argv, reason, monkeypatch, capsys):
+def test_cli_refusals_name_the_reason(argv, reason, gpus, monkeypatch,
+                                      capsys):
     """Each refusal exits 2 before anything is built."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: gpus > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: gpus)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
 
     def no_build(*a, **k):
         raise AssertionError("a model was built")
