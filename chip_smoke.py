@@ -18,6 +18,18 @@ where there is no CUDA device or the port's package is missing.  It
    dispatch, unpipelined) that must agree bit for bit, then all 28
    Table III workloads at a budget of 20,000 as one fleet on one
    signature, timed against the same searches run one after another;
+   then the fleet sharded over a ``SearchMesh`` (every visible GPU, or
+   two shards of the one card): a sharded ``eval_stacked`` and an 8-task
+   segment fleet against one device, and the Table III fleet sharded
+   against unsharded, all bit for bit (the ``fleet_mesh`` line); the
+   port's contract analysis (``repro_torch.analysis``: 0 findings) and
+   deferred dispatches, plain and sharded, under
+   ``torch.cuda.set_sync_debug_mode("error")`` (the ``analysis`` line);
+   and ``benchmarks/run_torch.py --quick --only
+   sweep_json,es_ops,device_rounds``, its record in
+   ``chiprun_out/BENCH_sweep_torch.json`` held to the reference's absolute
+   gates and compared with the committed CPU baseline (the ``bench``
+   line);
 4. drives the sweep server (``launch.sweep_serve.SweepServer``) on
    loopback: the same 28 queries from 28 client threads, four of them
    admitted into the running fleet, in a clean epoch with checkpoints, an
@@ -287,6 +299,38 @@ def _same_grid(a, b, what):
                   f"{y.valid_evals})")
 
 
+def _capture_dispatches(fleet, n_tasks):
+    """Step a fleet of its own until it has made one segment call and one
+    stacked call of all ``n_tasks`` tasks; their (models, inputs)."""
+    from repro_torch.core import torch_cost
+    seen = {}
+    run_segments, eval_stacked = torch_cost.run_segments, \
+        torch_cost.eval_stacked
+
+    def keep_segments(models, segs, **kw):
+        if len(segs) == n_tasks and any(s.carry is not None for s in segs):
+            seen.setdefault("seg", (list(models), list(segs)))
+        return run_segments(models, segs, **kw)
+
+    def keep_stacked(models, batches, **kw):
+        if len(batches) == n_tasks:
+            seen.setdefault("stacked", (list(models), list(batches)))
+        return eval_stacked(models, batches, **kw)
+
+    torch_cost.run_segments, torch_cost.eval_stacked = keep_segments, \
+        keep_stacked
+    try:
+        fleet.start()
+        while len(seen) < 2 and fleet.step():
+            pass
+    finally:
+        torch_cost.run_segments, torch_cost.eval_stacked = run_segments, \
+            eval_stacked
+    check(len(seen) == 2, f"the fleet made no segment with carries or no "
+          f"stacked call of all {n_tasks} tasks")
+    return seen["seg"], seen["stacked"]
+
+
 def fleet_phase(device):
     """The fleet engine on the card: (a) the same method grid four ways —
     default (device segments, stacked, pipelined), host replay of the
@@ -405,32 +449,8 @@ def fleet_phase(device):
     # the inputs of one segment and one stacked call of all 28 tasks, from
     # a fleet of its own stepped until it has made both, outside every
     # timed run
-    seen = {}
-
-    def keep_segments(models, segs, **kw):
-        if len(segs) == len(table3):
-            seen["seg"] = (list(models), list(segs))
-        return run_segments(models, segs, **kw)
-
-    def keep_stacked(models, batches, **kw):
-        if len(batches) == len(table3):
-            seen["stacked"] = (list(models), list(batches))
-        return eval_stacked(models, batches, **kw)
-
-    torch_cost.run_segments, torch_cost.eval_stacked = keep_segments, \
-        keep_stacked
-    try:
-        probe = table3_fleet()
-        probe.start()
-        while len(seen) < 2 and probe.step():
-            pass
-    finally:
-        torch_cost.run_segments, torch_cost.eval_stacked = run_segments, \
-            eval_stacked
-    check(len(seen) == 2, "the Table III fleet made no segment or no "
-          "stacked call of all its tasks")
-    models, segs = seen["seg"]
-    models_s, batches = seen["stacked"]
+    (models, segs), (models_s, batches) = _capture_dispatches(
+        table3_fleet(), len(table3))
 
     def one_segment():
         return run_segments(models, segs)
@@ -462,6 +482,288 @@ def fleet_phase(device):
             device_ops_per_stacked_call=stacked_launches,
             ms_per_stacked_call=wall_ms(one_stacked),
             searches=rows))
+
+
+# -------------------------------------------------------------- fleet mesh
+
+MESH_FLEET_BUDGET = FLEET_BUDGET
+
+
+def _search_mesh(device):
+    """The mesh the sharded fleet runs on: every visible GPU where there
+    are two or more, else two shards of the one card (``make_search_mesh``
+    must give ``None`` there)."""
+    import torch
+    from repro_torch.core.torch_cost import SearchMesh
+    from repro_torch.launch.mesh import make_search_mesh
+    if torch.cuda.device_count() > 1:
+        mesh = make_search_mesh()
+        check(mesh is not None and len(mesh.devices) ==
+              torch.cuda.device_count(), "make_search_mesh() did not take "
+              "every visible GPU")
+        return mesh, "every visible GPU"
+    check(make_search_mesh() is None, "make_search_mesh() on one visible "
+          "GPU did not return None")
+    return SearchMesh((device, device), ("rows",)), "two shards of one card"
+
+
+def fleet_mesh_phase(device):
+    """The fleet sharded over a ``SearchMesh``: the reference's two checks
+    (``tests/test_device_rounds.py``: a sharded ``eval_stacked`` and an
+    8-task segment fleet against one device, bit for bit), then the 28
+    Table III workloads at the full budget as one fleet, sharded against
+    unsharded."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_workloads import all_workloads, by_name
+    from repro_torch.core import search, torch_cost
+    from repro_torch.core.torch_cost import ndev
+
+    mesh, mesh_kind = _search_mesh(device)
+    n = ndev(mesh)
+
+    # ---- (1) a sharded mega-batch, bit for bit
+    spec, ev = search.get_evaluator(by_name("mm1"), "cloud", device=device)
+    rng = np.random.default_rng(0)
+    batches = [spec.random_genomes(rng, m) for m in (48, 50, 64)]
+    models = [ev] * len(batches)
+    plain = torch_cost.eval_stacked(models, batches)
+    shard = torch_cost.eval_stacked(models, batches, mesh=mesh)
+    for p, s in zip(plain, shard):
+        for k in p:
+            check(np.array_equal(p[k], s[k]),
+                  f"fleet_mesh: sharded eval_stacked differs in {k}")
+
+    # ---- (2) an 8-task segment fleet, bit for bit
+    def fleet8(m):
+        tasks = [search.SearchTask(by_name("mm1"), "cloud", budget=700,
+                                   seed=s, name=f"t{s}") for s in range(8)]
+        ms = search.MultiSearch(tasks, search.FleetConfig(
+            stack_batches=True, device_rounds=4, mesh=m), device=device)
+        return ms.run(), ms.stats
+
+    res1, st1 = fleet8(None)
+    resn, stn = fleet8(mesh)
+    check(stn["devices"] == n and st1["devices"] == 1,
+          f"fleet_mesh: devices {stn['devices']} / {st1['devices']}")
+    check(stn["host_syncs_per_round"] <= 0.25,
+          f"fleet_mesh: {stn['host_syncs_per_round']} host syncs a round")
+    for name in res1:
+        check(res1[name].best_edp == resn[name].best_edp and
+              np.array_equal(res1[name].history, resn[name].history),
+              f"fleet_mesh: 8-task fleet {name} differs sharded "
+              f"({resn[name].best_edp} vs {res1[name].best_edp})")
+
+    # ---- (3) the Table III fleet at full width, sharded vs not
+    table3 = all_workloads()
+
+    def table3_fleet(m):
+        return search.MultiSearch(
+            [search.SearchTask(wl, "cloud", budget=MESH_FLEET_BUDGET, seed=0)
+             for wl in table3],
+            search.FleetConfig(stack_batches=True, mesh=m), device=device)
+
+    runs, results = {}, {}
+    for label, m in (("unsharded", None), ("sharded", mesh),
+                     ("sharded_again", mesh), ("unsharded_again", None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = table3_fleet(m)
+        results[label] = ms.run()
+        torch.cuda.synchronize()
+        st = ms.stats
+        runs[label] = dict(
+            wall_s=time.perf_counter() - t0, rounds=st["rounds"],
+            dispatches=st["dispatches"], host_syncs=st["host_syncs"],
+            host_syncs_per_round=st["host_syncs_per_round"],
+            host_blocked_s=st["host_blocked_s"], devices=st["devices"],
+            device_rounds=st["device_rounds"])
+    check(runs["sharded"]["devices"] == n, "fleet_mesh: the Table III "
+          "fleet did not shard")
+    for label in ("sharded", "sharded_again", "unsharded_again"):
+        for name, r in results["unsharded"].items():
+            s = results[label][name]
+            check(r.best_edp == s.best_edp and r.evals == s.evals and
+                  np.array_equal(r.history, s.history),
+                  f"fleet_mesh: Table III {name} differs {label} "
+                  f"({s.best_edp} vs {r.best_edp})")
+
+    # one segment call and one stacked call of all 28 tasks, sharded and
+    # not, outside every timed fleet
+    (seg_models, segs), (st_models, st_batches) = _capture_dispatches(
+        table3_fleet(None), len(table3))
+    segment = {}
+    for label, m in (("unsharded", None), ("sharded", mesh)):
+        def one_segment(m=m):
+            return [r.resolve() for r in torch_cost.run_segments(
+                seg_models, segs, mesh=m)]
+
+        def one_stacked(m=m):
+            return torch_cost.eval_stacked(st_models, st_batches, mesh=m)
+        segment[label] = dict(
+            ms_per_segment=wall_ms(one_segment),
+            device_ops_per_segment=count_device_launches(one_segment),
+            ms_per_stacked_call=wall_ms(one_stacked),
+            device_ops_per_stacked_call=count_device_launches(one_stacked))
+    return dict(
+        phase="fleet_mesh", device=str(device), mesh=mesh_kind, shards=n,
+        mesh_devices=[str(d) for d in mesh.devices],
+        checks=dict(eval_stacked_rows=[48, 50, 64], eval_stacked="bit-equal",
+                    fleet8="bit-equal", fleet8_devices=stn["devices"],
+                    fleet8_host_syncs_per_round=stn["host_syncs_per_round"],
+                    table3="bit-equal in all four runs"),
+        table3=dict(tasks=len(table3), budget=MESH_FLEET_BUDGET, runs=runs,
+                    sharded_over_unsharded_wall=(
+                        (runs["sharded"]["wall_s"] +
+                         runs["sharded_again"]["wall_s"]) /
+                        (runs["unsharded"]["wall_s"] +
+                         runs["unsharded_again"]["wall_s"])),
+                    segment_tasks=len(segs), segment_rounds=segs[0].rounds,
+                    stacked_rows=sum(len(b) for b in st_batches),
+                    calls=segment),
+        cross_device_cost="not measured" if len(set(mesh.devices)) == 1
+        else "measured: shards on distinct cards")
+
+
+# ---------------------------------------------------------------- analysis
+
+
+def analysis_phase(device):
+    """The port's contract analysis on the card: the lint (R2-R5) and the
+    graph audit over the port's files, then the on-card half of R3 — one
+    deferred ``eval_stacked`` and one deferred ``run_segments`` (each
+    plain and sharded) issued under ``torch.cuda.set_sync_debug_mode
+    ("error")``, where any synchronising call raises."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis import default_roots, run_report
+    from repro_torch.configs.paper_workloads import by_name
+    from repro_torch.core import search, torch_cost
+
+    t0 = time.perf_counter()
+    rep = run_report(roots=default_roots(HERE), include_graph=True,
+                     include_scan=True)
+    report_s = time.perf_counter() - t0
+    findings = rep["lint"]["violations"] + rep["graph"]["findings"]
+    check(rep["ok"] and not findings,
+          f"analysis: {len(findings)} finding(s): {findings[:5]}")
+
+    # inputs of a live fleet: 8 tasks, segments with carries, a stacked
+    # call; every evaluator, twin and table built before the checked run
+    mesh, _ = _search_mesh(device)
+    wls = [by_name(n) for n in ("mm1", "mm3")]
+    fleet = search.MultiSearch(
+        [search.SearchTask(wls[s % 2], "cloud", budget=2000, seed=s,
+                           name=f"a{s}") for s in range(8)],
+        search.FleetConfig(stack_batches=True, device_rounds=4),
+        device=device)
+    (seg_models, segs), (st_models, st_batches) = _capture_dispatches(
+        fleet, 8)
+    for m in (None, mesh):
+        torch_cost.eval_stacked(st_models, st_batches, mesh=m)
+        [r.resolve() for r in torch_cost.run_segments(seg_models, segs,
+                                                      mesh=m)]
+    torch_cost.clear_stack_cache()      # the checked calls build them
+    torch.cuda.synchronize()
+
+    pending = {}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for label, m in (("plain", None), ("sharded", mesh)):
+            pending[label] = (
+                torch_cost.eval_stacked(st_models, st_batches, mesh=m,
+                                        defer=True),
+                torch_cost.run_segments(seg_models, segs, mesh=m,
+                                        defer=True))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    outs = {}
+    for label, (stacked, seg_res) in pending.items():
+        outs[label] = (stacked.finalize(), [r.resolve() for r in seg_res])
+    for a, b in zip(outs["plain"][0], outs["sharded"][0]):
+        for k in a:
+            check(np.array_equal(a[k], b[k]), f"analysis: deferred "
+                  f"eval_stacked plain vs sharded differs in {k}")
+    for a, b in zip(outs["plain"][1], outs["sharded"][1]):
+        check(np.array_equal(a.final_pop, b.final_pop) and
+              np.array_equal(a.final_edp, b.final_edp),
+              "analysis: deferred run_segments plain vs sharded differs")
+    return dict(
+        phase="analysis", device=str(device), ok=rep["ok"],
+        findings=len(findings), report_s=report_s,
+        rule_counts=rep["lint"]["rule_counts"],
+        lint_seconds=rep["lint"]["seconds"],
+        graph_seconds=rep["graph"]["seconds"],
+        families=rep["graph"]["families"], graph_hashes=rep["graph"]["hashes"],
+        sync_debug=dict(mode="error", calls=[
+            "eval_stacked(defer=True)", "run_segments(defer=True)",
+            "the same, sharded"], stacked_rows=sum(len(b) for b in
+                                                   st_batches),
+            segment_tasks=len(segs), raised=False))
+
+
+# ------------------------------------------------------------------- bench
+
+BENCH_ARGS = ("--quick", "--only", "sweep_json,es_ops,device_rounds")
+
+
+def bench_phase(device):
+    """``benchmarks/run_torch.py --quick --only sweep_json,es_ops,
+    device_rounds`` on the card: ``BENCH_sweep_torch.json`` written to
+    ``chiprun_out/``, the reference's absolute gates, and
+    ``compare_sweep_torch`` against the committed CPU baseline over the
+    entries whose ``device_rounds`` are explicit (the others' default is
+    per backend)."""
+    import io
+    from benchmarks import compare_sweep_torch, run_torch
+
+    out_path = os.path.join(HERE, "chiprun_out", "BENCH_sweep_torch.json")
+    os.environ["REPRO_BENCH_SWEEP_JSON_TORCH"] = out_path
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        run_torch.main(list(BENCH_ARGS))
+    wall = time.perf_counter() - t0
+    csv = buf.getvalue().splitlines()
+    with open(out_path) as f:
+        cur = json.load(f)
+    with open(os.path.join(HERE, "benchmarks",
+                           "BENCH_sweep_torch.baseline.json")) as f:
+        base = json.load(f)
+    check(cur["device"].startswith("cuda"), f"bench ran on {cur['device']}")
+    archs = {a["arch"]: a for a in cur["archs"]}
+    base_archs = {a["arch"]: a for a in base["archs"]}
+    for name in ("structured_cloud", "serve_coalesce"):
+        check(archs[name]["dispatches_per_round"] == 1.0,
+              f"bench: {name} at {archs[name]['dispatches_per_round']} "
+              f"dispatches a round, expected 1.0")
+    for name in ("cloud_device_k4", "cloud_device_k4_unpipelined"):
+        check(archs[name]["host_syncs_per_round"] <=
+              base_archs[name]["host_syncs_per_round"],
+              f"bench: {name} at {archs[name]['host_syncs_per_round']} "
+              f"host syncs a round, the CPU baseline "
+              f"{base_archs[name]['host_syncs_per_round']}")
+    check(cur["analysis"]["violations"] == 0,
+          f"bench: {cur['analysis']['violations']} analysis violations")
+    entries = compare_sweep_torch.explicit_entries(base)
+    failures, warnings = compare_sweep_torch.compare(base, cur, entries)
+    cells = {(c["arch"], c["method"], c["workload"]): c["best_edp"]
+             for c in base["cells"]}
+    edps = [dict(arch=c["arch"], method=c["method"], workload=c["workload"],
+                 gpu=c["best_edp"],
+                 cpu_baseline=cells.get((c["arch"], c["method"],
+                                         c["workload"])))
+            for c in cur["cells"] if c["arch"] in entries]
+    return dict(
+        phase="bench", device=str(device), args=list(BENCH_ARGS),
+        wall_s=wall, path=os.path.relpath(out_path, HERE), csv=csv,
+        compared_entries=entries, compare_failures=failures,
+        compare_warnings=warnings, best_edps=edps,
+        entries={name: {k: a.get(k) for k in (
+            "seconds", "rounds", "dispatches_per_round",
+            "host_syncs_per_round", "device_rounds", "device_rounds_source",
+            "host_blocked_s", "n_devices")} for name, a in archs.items()},
+        analysis=cur["analysis"])
 
 
 # ------------------------------------------------------------------- serve
@@ -3700,7 +4002,10 @@ def main(argv=None) -> int:
     report["search"]["seconds"] = time.perf_counter() - t0
     emit(report["search"])
 
-    for name, phase in (("fleet", fleet_phase), ("tables", tables_phase),
+    for name, phase in (("fleet", fleet_phase),
+                        ("fleet_mesh", fleet_mesh_phase),
+                        ("analysis", analysis_phase), ("bench", bench_phase),
+                        ("tables", tables_phase),
                         ("serve", serve_phase), ("lm", lm_phase),
                         ("train", train_phase), ("ssm", ssm_phase),
                         ("moe", moe_phase), ("encdec", encdec_phase),
@@ -3720,7 +4025,8 @@ def main(argv=None) -> int:
     # kernel (nor do they in the reference): training runs the chunked
     # route under autograd, xlstm has no attention and zamba2's head
     # size is not the flash kernel's
-    for name in ("tables", "train", "ssm", "dist"):
+    for name in ("fleet_mesh", "analysis", "bench", "tables", "train",
+                 "ssm", "dist"):
         check(report[name]["kernel_launches"] == dict(bsr_spmm=0,
                                                       flash_attention=0),
               f"{name}: kernel launches {report[name]['kernel_launches']}")

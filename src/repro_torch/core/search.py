@@ -235,10 +235,13 @@ class FleetConfig:
     ``to_json()`` is byte-equal to the reference's for the same settings,
     and either package reads the other's.
 
-    Two fields are kept for that schema only: ``compile_ahead`` does
-    nothing here (eager PyTorch compiles nothing ahead of a dispatch, so
-    ``stats["compile_ahead_hits"/"compile_ahead_misses"]`` are 0), and
-    ``mesh`` must be ``None`` (sharding over several GPUs is not ported).
+    ``compile_ahead`` is kept for that schema only: it does nothing here
+    (eager PyTorch compiles nothing ahead of a dispatch, so
+    ``stats["compile_ahead_hits"/"compile_ahead_misses"]`` are 0).
+    ``mesh`` is ``None`` or a :class:`torch_cost.SearchMesh`
+    (``launch.mesh.make_search_mesh``) over which the fleet's mega-batches
+    and segments shard; it is process-local, so ``to_json()`` refuses a
+    config that holds one and the serving side attaches its own.
 
     ``device_rounds=None`` defers to the per-backend default
     (:func:`default_device_rounds`), resolved by
@@ -249,16 +252,18 @@ class FleetConfig:
     pad_policies: Dict[str, PadPolicy] = \
         dataclasses.field(default_factory=dict)
     device_rounds: Optional[int] = None
-    mesh: object = None
+    mesh: Optional[torch_cost.SearchMesh] = None
     device_execute: bool = True
     pipeline: bool = True
     compile_ahead: bool = True
 
     def __post_init__(self):
-        if self.mesh is not None:
+        if self.mesh is not None and \
+                not isinstance(self.mesh, torch_cost.SearchMesh):
             raise ValueError(
-                "FleetConfig.mesh must be None: sharding a fleet over "
-                "several GPUs is not ported yet")
+                f"FleetConfig.mesh must be None or a SearchMesh "
+                f"(launch.mesh.make_search_mesh), got "
+                f"{type(self.mesh).__name__}")
         for flag in ("align_signatures", "stack_batches",
                      "device_execute", "pipeline", "compile_ahead"):
             object.__setattr__(self, flag, bool(getattr(self, flag)))
@@ -288,6 +293,11 @@ class FleetConfig:
         return self.device_rounds, "explicit"
 
     def to_json_dict(self) -> Dict:
+        if self.mesh is not None:
+            raise ValueError(
+                "FleetConfig.mesh is process-local (a SearchMesh of torch "
+                "devices) and cannot be serialized; rebuild the mesh on "
+                "the serving side and attach it there")
         return dict(
             version=1,
             align_signatures=self.align_signatures,
@@ -406,7 +416,7 @@ class _TaskState:
 
 class MultiSearch:
     """Run a fleet of (method, workload, platform) searches concurrently
-    on one device.
+    on one device, or sharded over a :class:`torch_cost.SearchMesh`.
 
     Each task's engine is a request generator (``evolve_requests`` for
     SparseMap populations, ``baselines.*_requests`` for the baseline
@@ -448,7 +458,11 @@ class MultiSearch:
     spent waiting for device results either way.
 
     ``device`` is the device every evaluator of the fleet runs on
-    (``None`` means the GPU and raises where there is none).  After
+    (``None`` means the GPU and raises where there is none).  With
+    ``mesh`` (a ``FleetConfig`` field) both dispatch paths shard over the
+    mesh's devices (``torch_cost.eval_stacked`` / ``run_segments``), bit
+    for bit the unsharded results; ``stats["devices"]`` is its shard
+    count.  The host loop stays one process either way.  After
     :meth:`run`, ``stats`` holds the weighted round count, host sync
     count, dispatch count, and the aligned and natural signature sets.
     Duplicate resolved task names get ``#k`` suffixes (``name#0``,
@@ -473,6 +487,7 @@ class MultiSearch:
         self.device_rounds, self.device_rounds_source = \
             config.resolved_device_rounds(self.device)
         self.device_execute = config.device_execute
+        self.mesh = config.mesh
         self.pipeline = config.pipeline
         self.compile_ahead = config.compile_ahead
         self.final_names: List[str] = self._resolve_names(norm)
@@ -715,7 +730,7 @@ class MultiSearch:
                 # resolve this one
                 segres = torch_cost.run_segments(
                     [s.ev for s in grp], [s.req for s in grp],
-                    defer=self.pipeline)
+                    defer=self.pipeline, mesh=self.mesh)
                 for st, res in zip(grp, segres):
                     if self._advance(st, res):
                         pending.append(st)
@@ -747,7 +762,7 @@ class MultiSearch:
                 hwm = self._pad_hwm.get(sig, 0)
                 outs = torch_cost.eval_stacked(
                     [s.ev for s in grp], [s.req for s in grp],
-                    pad_floor=hwm, defer=self.pipeline)
+                    pad_floor=hwm, defer=self.pipeline, mesh=self.mesh)
                 dispatched.append((grp, outs))
                 target = torch_cost._pad_batch(
                     sum(len(s.req) for s in grp))
@@ -821,7 +836,7 @@ class MultiSearch:
             compile_ahead_hits=0,
             compile_ahead_misses=0,
             host_blocked_s=torch_cost.host_blocked_s() - self._blocked0,
-            devices=1,
+            devices=torch_cost.ndev(self.mesh),
             device=str(self.device),
             dispatches=torch_cost.dispatch_count() - self._dispatch0,
             signatures=sorted({s.signature for s in self._states}),
@@ -852,7 +867,9 @@ def run_sweep(workloads: Sequence[Workload],
               platform: PlatformLike = "cloud",
               budget: int = 20_000, seed: int = 0,
               align_signatures: bool = True, stack_batches: bool = False,
-              device_rounds: Optional[int] = None, pipeline: bool = True,
+              device_rounds: Optional[int] = None,
+              mesh: Optional[torch_cost.SearchMesh] = None,
+              pipeline: bool = True,
               config: Optional[FleetConfig] = None,
               device: DeviceLike = None,
               **es_kw) -> Dict[str, SearchResult]:
@@ -863,7 +880,7 @@ def run_sweep(workloads: Sequence[Workload],
         config = FleetConfig(
             align_signatures=align_signatures,
             stack_batches=stack_batches, device_rounds=device_rounds,
-            pipeline=pipeline)
+            mesh=mesh, pipeline=pipeline)
     ms = MultiSearch(
         [SearchTask(wl, platform, budget=budget, seed=seed,
                     method_kw=dict(es_kw)) for wl in workloads],
@@ -880,6 +897,7 @@ def run_method_sweep(methods: Sequence[str],
                      method_kw: Optional[Dict[str, Dict]] = None,
                      stats_out: Optional[Dict] = None,
                      device_rounds: Optional[int] = None,
+                     mesh: Optional[torch_cost.SearchMesh] = None,
                      device_execute: bool = True, pipeline: bool = True,
                      config: Optional[FleetConfig] = None,
                      device: DeviceLike = None
@@ -906,7 +924,7 @@ def run_method_sweep(methods: Sequence[str],
         config = FleetConfig(
             align_signatures=align_signatures,
             stack_batches=stack_batches, device_rounds=device_rounds,
-            device_execute=device_execute, pipeline=pipeline)
+            mesh=mesh, device_execute=device_execute, pipeline=pipeline)
     ms = MultiSearch(tasks, config, device=device)
     flat = ms.run()
     grid: Dict[str, Dict[str, SearchResult]] = {m: {} for m in methods}

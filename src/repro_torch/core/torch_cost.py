@@ -24,7 +24,17 @@ Because every row runs the same per-row arithmetic whatever batch it sits
 in, the three paths give bit-identical results for the same rows; the one
 operation whose CPU result depended on a row's position (float32 ``pow``,
 vectorised body vs scalar tail) is evaluated in float64 (:func:`_pow`).
-The multi-device (sharded) paths of the reference are not ported.
+
+Several devices (the reference's ``shard_map`` over a 1-D mesh): a
+:class:`SearchMesh` lists devices, and :func:`eval_stacked` gives each one
+a contiguous block of the padded rows, :func:`run_segments` a contiguous
+block of tasks.  It is one process and one host thread over a list of
+devices, with no process group and no collective: each shard is
+independent, and the fleet's host state (``search.MultiSearch``) stays
+whole.  A shard runs on its device's twin of each model (the same numpy
+constants uploaded there once), and its results are those of the
+unsharded call, bit for bit, since a row's result does not depend on
+where it sits.
 
 Structure vs numbers: the arch's *structure* (loop-slot count, store
 tables, S/G site wiring, NoC multicast/reduction shape, which parameters
@@ -93,6 +103,33 @@ FMT_U, FMT_B, FMT_RLE, FMT_CP, FMT_UOP = range(5)
 
 def _bucket(n: int, size: int = 16) -> int:
     return ((n + size - 1) // size) * size
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchMesh:
+    """A 1-D mesh of devices for sharding a fleet: :func:`eval_stacked`
+    splits its padded rows over ``devices`` in contiguous blocks,
+    :func:`run_segments` its tasks.  A device may appear more than once
+    (two shards on one card, or the CPU's shards in tests).  Built by
+    ``repro_torch.launch.mesh.make_search_mesh`` or directly."""
+
+    devices: Tuple[torch.device, ...]
+    axis_names: Tuple[str, ...] = ("rows",)
+
+    def __post_init__(self):
+        devs = tuple(resolve_device(d) for d in self.devices)
+        if not devs:
+            raise ValueError("a SearchMesh needs at least one device")
+        if len(tuple(self.axis_names)) != 1:
+            raise ValueError(f"a SearchMesh has one axis, got "
+                             f"{self.axis_names!r}")
+        object.__setattr__(self, "devices", devs)
+        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+
+
+def ndev(mesh: Optional[SearchMesh]) -> int:
+    """Shards of a mesh; 1 for ``None`` (the unsharded path)."""
+    return 1 if mesh is None else len(mesh.devices)
 
 
 # Evaluator dispatches issued since the last reset — the per-round
@@ -579,7 +616,10 @@ def eval_batch(tt: _TopoTables, tb: _Tables, structured: bool,
         # the width, metadata bits do not, so the compression ratio is
         # recomputed per edge (edge s fills store s+1, whose width also
         # prices that store's occupancy)
-        wbs = plat[:, list(tt.word_idx)][:, :, None]            # (R, NE, 1)
+        # a slice, not a list: indexing a device tensor by a Python list
+        # copies the index up from pageable memory, a host sync
+        w0 = tt.word_idx[0]
+        wbs = plat[:, w0:w0 + NE][:, :, None]                   # (R, NE, 1)
         full_wb = full_elems[:, None, :] * wbs                  # (R, NE, 3)
         data_be = torch.where(
             compressed[:, None, :],
@@ -726,6 +766,7 @@ class TorchCostModel:
         #: the signature's shared genome layout, in which rows reach the
         #: evaluator
         self.layout = PaddedLayout(spec, self.n_pad)
+        self._twins: Dict[torch.device, "TorchCostModel"] = {}
 
     @classmethod
     def from_numpy_consts(cls, spec: GenomeSpec,
@@ -745,6 +786,23 @@ class TorchCostModel:
         """The (ndims, prime-bucket, topology, density-key) signature."""
         return (self.d, self.n_pad, self.arch.topology.fingerprint,
                 self.dens_key)
+
+    def twin(self, device: torch.device) -> "TorchCostModel":
+        """This evaluator on ``device``: itself where it lives there,
+        else a copy made once from the same numpy constants and kept — a
+        mesh shard's model, whose tables and constants all sit on the
+        shard's device."""
+        if device == self.device:
+            return self
+        with _LOCK:
+            tw = self._twins.get(device)
+        if tw is None:
+            tw = TorchCostModel(self.spec, self.arch, n_pad=self.n_pad,
+                                structured=self.structured, device=device,
+                                _consts=self._np_consts)
+            with _LOCK:
+                tw = self._twins.setdefault(device, tw)
+        return tw
 
     def eval_device(self, rows: torch.Tensor,
                     consts: Optional[Sequence[torch.Tensor]] = None
@@ -774,8 +832,8 @@ class TorchCostModel:
         _count_dispatch()
         valid, energy, cycles = self.eval_device(
             self.layout.pad_rows(raw.long()))
-        (host,) = _Fetch([torch.stack([valid.to(torch.float32), energy,
-                                       cycles])]).wait()
+        ((host,),) = _wait_all([_Fetch([torch.stack(
+            [valid.to(torch.float32), energy, cycles])])])
         return _canonical(dict(valid=host[0] > 0.5, energy_pj=host[1],
                                cycles=host[2]))
 
@@ -827,31 +885,37 @@ def _upload(arrays: Sequence[np.ndarray], device: torch.device,
 
 
 class _Fetch:
-    """Device tensors on their way to the host.  On the GPU each is copied
-    into pinned host memory by a copy queued now, behind the work that
-    computes it, and an event marks the end of the copies; :meth:`wait`
-    blocks on that event alone (charged to :func:`host_blocked_s`), so
-    work queued after the copies — the next round — keeps running."""
+    """Device tensors (all on one device) on their way to the host.  On
+    the GPU each is copied into pinned host memory by a copy queued now,
+    on that device's stream behind the work that computes it, and an
+    event recorded there marks the end of the copies; :func:`_wait_all`
+    blocks on that event alone, so work queued after the copies — the
+    next round — keeps running."""
 
     def __init__(self, tensors: Sequence[torch.Tensor]):
         self._event = None
         if tensors[0].is_cuda:
-            self._host = []
-            for t in tensors:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                h.copy_(t, non_blocking=True)
-                self._host.append(h)
-            self._event = torch.cuda.Event()
-            self._event.record()
+            with torch.cuda.device(tensors[0].device):
+                self._host = []
+                for t in tensors:
+                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    h.copy_(t, non_blocking=True)
+                    self._host.append(h)
+                self._event = torch.cuda.Event()
+                self._event.record()
         else:
             self._host = list(tensors)
 
-    def wait(self) -> List[np.ndarray]:
-        def conv():
-            if self._event is not None:
-                self._event.synchronize()
-            return [h.numpy() for h in self._host]
-        return _time_block(conv)
+    def _ready(self) -> List[np.ndarray]:
+        if self._event is not None:
+            self._event.synchronize()
+        return [h.numpy() for h in self._host]
+
+
+def _wait_all(fetches: Sequence[_Fetch]) -> List[List[np.ndarray]]:
+    """Wait for every fetch of a dispatch (one per shard), charging the
+    wait to :func:`host_blocked_s` once."""
+    return _time_block(lambda: [f._ready() for f in fetches])
 
 
 # ------------------------------------------------- stacked mega-batch
@@ -868,10 +932,11 @@ def _pad_batch(n: int) -> int:
 
 # The stacked constants of a same-signature group: each model's constants
 # stacked into (T, ...) device tensors and given to every row through a
-# row-to-task index.  One slot per (signature, device, kind), keyed by
-# CONTENT (workload cache_key + arch per model, never id(), so a recycled
-# object can't alias a stale entry) plus the row counts: a steady fleet
-# builds them once, not every round.
+# row-to-task index.  One slot per (signature, device, kind, shard), keyed
+# by CONTENT (workload cache_key + arch per model, never id(), so a
+# recycled object can't alias a stale entry) plus the row counts: a steady
+# fleet builds them once, not every round.  The shard index keeps two
+# shards on one device from evicting each other's entry every round.
 _STACK_CONSTS: Dict[Tuple, Tuple] = {}
 _STACK_PREP_HITS = 0
 _STACK_PREP_MISSES = 0
@@ -897,15 +962,15 @@ def clear_stack_cache() -> None:
 
 
 def _stacked_consts(models: Sequence[TorchCostModel], sizes: Sequence[int],
-                    padded: int, kind: str
+                    padded: int, kind: str, shard: int = 0
                     ) -> Tuple[Tuple[torch.Tensor, ...],
                                Tuple[torch.Tensor, ...]]:
-    """``(per-task, per-row)`` constants of a same-signature group: model
-    ``t`` owns ``sizes[t]`` consecutive rows, the ``padded - sum(sizes)``
-    padding rows take model 0's constants."""
+    """``(per-task, per-row)`` constants of a same-signature group on its
+    models' device: model ``t`` owns ``sizes[t]`` consecutive rows, the
+    ``padded - sum(sizes)`` padding rows take model 0's constants."""
     global _STACK_PREP_HITS, _STACK_PREP_MISSES
     m0 = models[0]
-    slot = m0.signature + (str(m0.device), kind)
+    slot = m0.signature + (str(m0.device), kind, int(shard))
     key = (tuple((m.spec.workload.cache_key(), m.arch) for m in models),
            tuple(int(n) for n in sizes), int(padded))
     with _LOCK:
@@ -937,19 +1002,24 @@ def _check_group(models: Sequence[TorchCostModel], what: str) -> None:
 
 class StackedPending:
     """Handle to an in-flight ``eval_stacked(..., defer=True)`` dispatch:
-    the device is computing when this is constructed, and ``finalize()``
-    waits for the results (charged to :func:`host_blocked_s`),
-    canonicalizes, and slices the mega-batch back per task.  ``finalize``
-    is idempotent."""
+    the devices are computing when this is constructed, and
+    ``finalize()`` waits for every shard's results at once (charged to
+    :func:`host_blocked_s`), joins the shards' real rows in order,
+    canonicalizes, and slices the mega-batch back per task.
+    ``finalize`` is idempotent."""
 
-    def __init__(self, fetch: _Fetch, sizes: Sequence[int]):
-        self._fetch = fetch
+    def __init__(self, fetches: Sequence[_Fetch], real: Sequence[int],
+                 sizes: Sequence[int]):
+        self._fetches = list(fetches)
+        self._real = list(real)
         self._sizes = list(sizes)
         self._sliced: Optional[List[Dict[str, np.ndarray]]] = None
 
     def finalize(self) -> List[Dict[str, np.ndarray]]:
         if self._sliced is None:
-            (host,) = self._fetch.wait()
+            hosts = _wait_all(self._fetches)
+            host = np.concatenate([h[0][:, :r] for h, r in
+                                   zip(hosts, self._real)], axis=1)
             flat = _canonical(dict(valid=host[0] > 0.5, energy_pj=host[1],
                                    cycles=host[2]))
             sliced: List[Dict[str, np.ndarray]] = []
@@ -958,13 +1028,36 @@ class StackedPending:
                 sliced.append({k: v[off:off + n] for k, v in flat.items()})
                 off += n
             self._sliced = sliced
-            self._fetch = None
+            self._fetches = None
         return self._sliced
+
+
+def _stacked_block(models: Sequence[TorchCostModel],
+                   batches: Sequence[np.ndarray], rows: int,
+                   shard: int) -> _Fetch:
+    """Queue one device's mega-batch — ``batches`` laid out in order on
+    ``rows`` rows of its models' device, padding rows zero — and the copy
+    of its ``(3, rows)`` results."""
+    dev = models[0].device
+    sizes = [len(b) for b in batches]
+    # as in __call__: the rows go up unpadded in int32 and are laid out on
+    # the device
+    raws = _upload(batches, dev, np.int32)
+    rows_t = torch.zeros((rows, models[0].layout.Lp), dtype=torch.int64,
+                         device=dev)
+    off = 0
+    for m, raw, n in zip(models, raws, sizes):
+        m.layout.pad_rows(raw, out=rows_t[off:off + n])
+        off += n
+    _, consts = _stacked_consts(models, sizes, rows, "stacked", shard)
+    valid, energy, cycles = models[0].eval_device(rows_t, consts)
+    return _Fetch([torch.stack([valid.to(torch.float32), energy, cycles])])
 
 
 def eval_stacked(models: Sequence[TorchCostModel],
                  batches: Sequence[np.ndarray],
-                 pad_floor: int = 0, defer: bool = False):
+                 pad_floor: int = 0, defer: bool = False,
+                 mesh: Optional[SearchMesh] = None):
     """Evaluate several (model, genome-batch) pairs sharing one signature
     in a SINGLE dispatch.
 
@@ -979,6 +1072,12 @@ def eval_stacked(models: Sequence[TorchCostModel],
     off).  Rows run the same per-row arithmetic as the broadcast call, so
     results are bit-identical to per-model calls.
 
+    ``mesh`` (more than one shard) pads the rows further to a multiple of
+    the shard count and gives shard ``i`` the ``i``-th contiguous block,
+    evaluated on ``mesh.devices[i]`` by the models' twins there
+    (:meth:`TorchCostModel.twin`); a block of padding rows alone is not
+    evaluated.  Results are those of ``mesh=None``, bit for bit.
+
     ``defer=True`` returns a :class:`StackedPending` instead of the sliced
     list: the work and the copy of its results are queued, and nothing
     blocks until ``finalize()`` — the pipelined driver finalizes round N's
@@ -990,22 +1089,28 @@ def eval_stacked(models: Sequence[TorchCostModel],
     sizes = [len(b) for b in batches]
     total = sum(sizes)
     padded = max(_pad_batch(total), int(pad_floor))
-    dev = models[0].device
-    # as in __call__: the rows go up unpadded in int32 and are laid out on
-    # the device, padding rows zero
-    raws = _upload(batches, dev, np.int32)
-    rows_t = torch.zeros((padded, models[0].layout.Lp), dtype=torch.int64,
-                         device=dev)
-    off = 0
-    for m, raw, n in zip(models, raws, sizes):
-        m.layout.pad_rows(raw, out=rows_t[off:off + n])
-        off += n
-    _, consts = _stacked_consts(models, sizes, padded, "stacked")
+    n = ndev(mesh)
+    if padded % n:
+        padded = -(-padded // n) * n
+    per = padded // n
+    devices = mesh.devices if n > 1 else (models[0].device,)
+    ends = np.cumsum([0] + sizes)
     _count_dispatch()
-    valid, energy, cycles = models[0].eval_device(rows_t, consts)
-    pending = StackedPending(
-        _Fetch([torch.stack([valid.to(torch.float32), energy, cycles])]),
-        sizes)
+    fetches, real = [], []
+    for i, dev in enumerate(devices):
+        lo, hi = i * per, (i + 1) * per
+        if lo >= total:
+            break
+        pick = [(m.twin(dev), np.asarray(b)[max(lo - a, 0):hi - a])
+                for m, b, a, z in zip(models, batches, ends, ends[1:])
+                if a < hi and z > lo]
+        fetches.append(_stacked_block([m for m, _ in pick],
+                                      [b for _, b in pick], per, i))
+        real.append(min(hi, total) - lo)
+    if not fetches:         # no rows at all: one block of padding
+        fetches.append(_stacked_block([models[0]], [batches[0]], per, 0))
+        real.append(0)
+    pending = StackedPending(fetches, real, sizes)
     return pending if defer else pending.finalize()
 
 
@@ -1053,9 +1158,162 @@ def _direct_translate(kids: torch.Tensor, model: TorchCostModel,
     return canon, ok
 
 
+class _SegmentBlock:
+    """One device's block of tasks in a :func:`run_segments` call: its
+    plans, populations and constants uploaded to the models' device and
+    its outputs allocated there; :meth:`step` queues one generation."""
+
+    def __init__(self, models: Sequence[TorchCostModel],
+                 segs: Sequence[DeviceSegment], shape_key: Tuple,
+                 shard: int):
+        B, k, self.n_parents, self.n_elite, _, kind, restart = shape_key
+        self.direct = direct = kind == "direct"
+        self.restart = restart
+        self.m0 = models[0]
+        dev = self.m0.device
+        T = self.T = len(segs)
+        C = self.C = int(np.asarray(segs[0].draws["ab"]).shape[1])
+        lays = self.lays = [m.layout for m in models]
+
+        # ---- host -> device: the integers in one copy, the floats in one
+        def plan(key, pad=None):
+            return np.stack([np.asarray(s.draws[key]) if pad is None or
+                             direct else pad(lay)(np.asarray(s.draws[key]))
+                             for s, lay in zip(segs, lays)])
+        host_pop = [t for t, s in enumerate(segs) if s.carry is None]
+        ints = [plan("ab"), plan("cuts", lambda lay: lay.pad_cut),
+                plan("active"), plan("gene", lambda lay: lay.pad_index),
+                plan("vals")]
+        for t in host_pop:
+            p = np.asarray(segs[t].pop, dtype=np.int64)
+            ints.append(p if direct else lays[t].pad_rows(p))
+        flts = [np.asarray(segs[t].edp, dtype=np.float32) for t in host_pop]
+        if direct:
+            ints.append(np.stack([s.aux["scramble"] for s in segs]))
+            flts.append(np.stack([s.aux["dim_sizes"] for s in segs]))
+        else:
+            fixed = np.zeros((2, T, lays[0].Lp), dtype=np.int64)
+            for t, (s, lay) in enumerate(zip(segs, lays)):
+                if s.fixed_genes:
+                    idx = lay.pad_index(np.asarray(list(s.fixed_genes),
+                                                   dtype=np.int64))
+                    fixed[0, t, idx] = 1
+                    fixed[1, t, idx] = list(s.fixed_genes.values())
+            ints.append(np.stack([lay.pad_vector(m.spec.gene_ub, 1)
+                                  for m, lay in zip(models, lays)]))
+            ints.append(fixed)
+        if restart:
+            ints.append(np.stack([lay.pad_rows(
+                np.asarray(s.draws["fresh"], dtype=np.int64))
+                for s, lay in zip(segs, lays)]))
+            ints.append(np.asarray([s.state[1] for s in segs]))
+            flts.append(np.asarray([s.state[0] for s in segs]))
+        iu = iter(_upload(ints, dev))
+        fu = iter(_upload(flts, dev, np.float32) if flts else [])
+        self.ab, self.cuts, active, self.gene, self.vals = \
+            (next(iu) for _ in range(5))
+        self.active = active.bool()
+        up_pop = {t: (next(iu), next(fu)) for t in host_pop}
+        # a carry made on another device (its task sat in another shard
+        # last round) moves here with one copy
+        self.pop = torch.stack([up_pop[t][0] if t in up_pop else
+                                s.carry[0].to(dev)
+                                for t, s in enumerate(segs)])
+        self.edp = torch.stack([up_pop[t][1] if t in up_pop else
+                                s.carry[1].to(dev)
+                                for t, s in enumerate(segs)])
+        if direct:
+            self.scramble, self.dim_sizes = next(iu), next(fu)
+        else:
+            self.ub_m1, fixed = next(iu) - 1, next(iu)
+            self.fix_mask = fixed[0].bool()[:, None, :]
+            self.fix_vals = fixed[1][:, None, :]
+        if restart:
+            self.fresh, self.since, self.best = next(iu), next(iu), next(fu)
+
+        reps = 2 if restart else 1
+        self.task_c, self.row_c = _stacked_consts(
+            list(models) * reps, [C] * (T * reps), T * C * reps, "segment",
+            shard)
+        Lp = lays[0].Lp
+        self.ys_kids = torch.empty((T, k, C, Lp), dtype=torch.int64,
+                                   device=dev)
+        self.ys = torch.empty((3, T, k, C), dtype=torch.float32, device=dev)
+        if restart:
+            self.ys_fresh = torch.empty((3, T, k, C), dtype=torch.float32,
+                                        device=dev)
+            self.ys_restarted = torch.empty((T, k), dtype=torch.bool,
+                                            device=dev)
+        self.big = torch.full((), float("inf"), dtype=torch.float32,
+                              device=dev)
+
+    def step(self, g: int) -> None:
+        """Queue generation ``g`` of every task of the block."""
+        T, C, m0 = self.T, self.C, self.m0
+        n, Lp = T * C, self.lays[0].Lp
+        pop, edp = self.pop, self.edp
+        parents, elites, elite_edp = es_ops.select(pop, edp, self.n_parents,
+                                                   self.n_elite)
+        kids = es_ops.apply_crossover(parents, self.ab[:, g],
+                                      self.cuts[:, g])
+        kids = es_ops.apply_mutation(kids, self.active[:, g],
+                                     self.gene[:, g], self.vals[:, g])
+        if self.direct:
+            # direct mutation draws are valid values by construction: no
+            # clip, no fixed genes (as on the host)
+            canon, ok = _direct_translate(kids, m0, self.task_c[0],
+                                          self.task_c[1], self.scramble,
+                                          self.dim_sizes)
+            valid, energy, cycles = m0.eval_device(canon.reshape(n, Lp),
+                                                   self.row_c)
+            okf = ok.reshape(n)
+            valid = valid & okf
+            energy = torch.where(okf, energy, self.big)
+            cycles = torch.where(okf, cycles, self.big)
+            self.ys_kids[:, g] = torch.where(ok[:, :, None], canon, 0)
+        else:
+            kids = torch.minimum(kids.clamp(min=0), self.ub_m1[:, None, :])
+            kids = torch.where(self.fix_mask, self.fix_vals, kids)
+            self.ys_kids[:, g] = kids
+            rows = kids.reshape(n, Lp)
+            if self.restart:
+                rows = torch.cat([rows, self.fresh[:, g].reshape(n, Lp)])
+            valid, energy, cycles = m0.eval_device(rows, self.row_c)
+        for i, v in enumerate((valid, energy, cycles)):
+            self.ys[i, :, g] = v[:n].view(T, C)
+        kedp = (cycles[:n] * energy[:n]).view(T, C)
+        new_pop = torch.cat([elites, kids], dim=1)
+        new_edp = torch.cat([elite_edp, kedp], dim=1)
+        if self.restart:
+            best, since, fresh = self.best, self.since, self.fresh[:, g]
+            for i, v in enumerate((valid, energy, cycles)):
+                self.ys_fresh[i, :, g] = v[n:].view(T, C)
+            fedp = (cycles[n:] * energy[n:]).view(T, C)
+            kbest = torch.minimum(best, kedp.min(dim=1).values)
+            since = torch.where(kbest < best, 0, since + 1)
+            do_r = since >= self.restart
+            new_pop = torch.where(do_r[:, None, None],
+                                  torch.cat([elites, fresh], dim=1), new_pop)
+            new_edp = torch.where(do_r[:, None],
+                                  torch.cat([elite_edp, fedp], dim=1),
+                                  new_edp)
+            self.best = torch.where(
+                do_r, torch.minimum(kbest, fedp.min(dim=1).values), kbest)
+            self.since = torch.where(do_r, 0, since)
+            self.ys_restarted[:, g] = do_r
+        self.pop, self.edp = new_pop, new_edp
+
+    def outs(self) -> List[torch.Tensor]:
+        outs = [self.pop, self.edp, self.ys_kids, self.ys]
+        if self.restart:
+            outs += [self.ys_fresh, self.ys_restarted, self.best, self.since]
+        return outs
+
+
 def run_segments(models: Sequence[TorchCostModel],
                  segs: Sequence[DeviceSegment],
-                 defer: bool = False) -> List[SegmentResult]:
+                 defer: bool = False,
+                 mesh: Optional[SearchMesh] = None) -> List[SegmentResult]:
     """Execute one DeviceSegment per model as ONE dispatch: the segments
     (which must share the models' signature and the segment shape key)
     stack along a task axis, and a Python loop over the ``k`` generations
@@ -1078,10 +1336,20 @@ def run_segments(models: Sequence[TorchCostModel],
     pre-drawn fresh block is always evaluated (with the children, in the
     same call) and adopted by a ``torch.where`` when the counter trips.
 
+    ``mesh`` shards where the reference's does — more than one shard, a
+    task count the shard count divides, no restart, not ``direct`` —
+    giving shard ``i`` the ``i``-th contiguous block of tasks on
+    ``mesh.devices[i]`` (the models' twins there), each block's plans up
+    in its own copies; the one host thread queues generation g of every
+    shard before generation g + 1 of any, so no device waits for another's
+    whole segment.  Other calls run unsharded.  Results are those of
+    ``mesh=None``, bit for bit.
+
     Pipelining: a segment carrying ``carry`` (the device ``(pop, edp)``
     of its previous result) starts from it, so the population never
-    leaves the device between segments.  With ``defer=True`` the results
-    hold a ``harvest`` thunk that waits for the copy one round late
+    leaves the device between segments (a carry made on another device
+    moves with one copy).  With ``defer=True`` the results hold a
+    ``harvest`` thunk that waits for every shard's copy one round late
     (``SegmentResult.resolve``); ``carry`` is valid either way.  Restart
     results fill ``state`` at once (their generators harvest eagerly)."""
     if len(models) != len(segs):
@@ -1094,140 +1362,33 @@ def run_segments(models: Sequence[TorchCostModel],
     direct = kind == "direct"
     if direct and restart:
         raise ValueError("direct segments do not support in-segment restart")
-    dev = models[0].device
-    m0 = models[0]
-    T = len(segs)
-    C = int(np.asarray(segs[0].draws["ab"]).shape[1])
-    lays = [m.layout for m in models]
-
-    # ---- host -> device: the integers in one copy, the floats in one
-    def plan(key, pad=None):
-        return np.stack([np.asarray(s.draws[key]) if pad is None or direct
-                         else pad(lay)(np.asarray(s.draws[key]))
-                         for s, lay in zip(segs, lays)])
-    host_pop = [t for t, s in enumerate(segs) if s.carry is None]
-    ints = [plan("ab"), plan("cuts", lambda lay: lay.pad_cut),
-            plan("active"), plan("gene", lambda lay: lay.pad_index),
-            plan("vals")]
-    for t in host_pop:
-        p = np.asarray(segs[t].pop, dtype=np.int64)
-        ints.append(p if direct else lays[t].pad_rows(p))
-    flts = [np.asarray(segs[t].edp, dtype=np.float32) for t in host_pop]
-    if direct:
-        ints.append(np.stack([s.aux["scramble"] for s in segs]))
-        flts.append(np.stack([s.aux["dim_sizes"] for s in segs]))
+    T, n = len(segs), ndev(mesh)
+    if n > 1 and T % n == 0 and not restart and not direct:
+        per = T // n
+        blocks = [([m.twin(dev) for m in models[i * per:(i + 1) * per]],
+                   segs[i * per:(i + 1) * per])
+                  for i, dev in enumerate(mesh.devices)]
     else:
-        fixed = np.zeros((2, T, lays[0].Lp), dtype=np.int64)
-        for t, (s, lay) in enumerate(zip(segs, lays)):
-            if s.fixed_genes:
-                idx = lay.pad_index(np.asarray(list(s.fixed_genes),
-                                               dtype=np.int64))
-                fixed[0, t, idx] = 1
-                fixed[1, t, idx] = list(s.fixed_genes.values())
-        ints.append(np.stack([lay.pad_vector(m.spec.gene_ub, 1)
-                              for m, lay in zip(models, lays)]))
-        ints.append(fixed)
-    if restart:
-        ints.append(np.stack([lay.pad_rows(np.asarray(s.draws["fresh"],
-                                                      dtype=np.int64))
-                              for s, lay in zip(segs, lays)]))
-        ints.append(np.asarray([s.state[1] for s in segs]))
-        flts.append(np.asarray([s.state[0] for s in segs]))
-    iu = iter(_upload(ints, dev))
-    fu = iter(_upload(flts, dev, np.float32) if flts else [])
-    ab, cuts, active, gene, vals = (next(iu) for _ in range(5))
-    active = active.bool()
-    up_pop = {t: (next(iu), next(fu)) for t in host_pop}
-    pop = torch.stack([up_pop[t][0] if t in up_pop else s.carry[0]
-                       for t, s in enumerate(segs)])
-    edp = torch.stack([up_pop[t][1] if t in up_pop else s.carry[1]
-                       for t, s in enumerate(segs)])
-    if direct:
-        scramble, dim_sizes = next(iu), next(fu)
-    else:
-        ub_m1, fixed = next(iu) - 1, next(iu)
-        fix_mask, fix_vals = fixed[0].bool()[:, None, :], fixed[1][:, None, :]
-    if restart:
-        fresh, since, best = next(iu), next(iu), next(fu)
-
-    reps = 2 if restart else 1
-    task_c, row_c = _stacked_consts(list(models) * reps, [C] * (T * reps),
-                                    T * C * reps, "segment")
-    n = T * C
-    Lp = lays[0].Lp
+        blocks = [(models, segs)]
+    runs = [_SegmentBlock(ms, ss, shape_key, i)
+            for i, (ms, ss) in enumerate(blocks)]
     _count_dispatch()
-    ys_kids = torch.empty((T, k, C, Lp), dtype=torch.int64, device=dev)
-    ys = torch.empty((3, T, k, C), dtype=torch.float32, device=dev)
-    if restart:
-        ys_fresh = torch.empty((3, T, k, C), dtype=torch.float32, device=dev)
-        ys_restarted = torch.empty((T, k), dtype=torch.bool, device=dev)
-    big = torch.full((), float("inf"), dtype=torch.float32, device=dev)
     with torch.no_grad():
         for g in range(k):
-            parents, elites, elite_edp = es_ops.select(pop, edp, n_parents,
-                                                       n_elite)
-            kids = es_ops.apply_crossover(parents, ab[:, g], cuts[:, g])
-            kids = es_ops.apply_mutation(kids, active[:, g], gene[:, g],
-                                         vals[:, g])
-            if direct:
-                # direct mutation draws are valid values by construction:
-                # no clip, no fixed genes (as on the host)
-                canon, ok = _direct_translate(kids, m0, task_c[0], task_c[1],
-                                              scramble, dim_sizes)
-                valid, energy, cycles = m0.eval_device(
-                    canon.reshape(n, Lp), row_c)
-                okf = ok.reshape(n)
-                valid = valid & okf
-                energy = torch.where(okf, energy, big)
-                cycles = torch.where(okf, cycles, big)
-                ys_kids[:, g] = torch.where(ok[:, :, None], canon, 0)
-            else:
-                kids = torch.minimum(kids.clamp(min=0), ub_m1[:, None, :])
-                kids = torch.where(fix_mask, fix_vals, kids)
-                ys_kids[:, g] = kids
-                rows = kids.reshape(n, Lp)
-                if restart:
-                    rows = torch.cat([rows, fresh[:, g].reshape(n, Lp)])
-                valid, energy, cycles = m0.eval_device(rows, row_c)
-            for i, v in enumerate((valid, energy, cycles)):
-                ys[i, :, g] = v[:n].view(T, C)
-            kedp = (cycles[:n] * energy[:n]).view(T, C)
-            new_pop = torch.cat([elites, kids], dim=1)
-            new_edp = torch.cat([elite_edp, kedp], dim=1)
-            if restart:
-                for i, v in enumerate((valid, energy, cycles)):
-                    ys_fresh[i, :, g] = v[n:].view(T, C)
-                fedp = (cycles[n:] * energy[n:]).view(T, C)
-                kbest = torch.minimum(best, kedp.min(dim=1).values)
-                since = torch.where(kbest < best, 0, since + 1)
-                do_r = since >= restart
-                new_pop = torch.where(
-                    do_r[:, None, None],
-                    torch.cat([elites, fresh[:, g]], dim=1), new_pop)
-                new_edp = torch.where(do_r[:, None],
-                                      torch.cat([elite_edp, fedp], dim=1),
-                                      new_edp)
-                best = torch.where(
-                    do_r, torch.minimum(kbest, fedp.min(dim=1).values),
-                    kbest)
-                since = torch.where(do_r, 0, since)
-                ys_restarted[:, g] = do_r
-            pop, edp = new_pop, new_edp
-    outs = [pop, edp, ys_kids, ys]
-    if restart:
-        outs += [ys_fresh, ys_restarted, best, since]
-    fetch = _Fetch(outs)
+            for run in runs:
+                run.step(g)
+    fetches = [_Fetch(run.outs()) for run in runs]
 
-    host: Dict[str, List[np.ndarray]] = {}
+    host: Dict[str, List[List[np.ndarray]]] = {}
 
-    def materialize() -> List[np.ndarray]:
+    def materialize() -> List[List[np.ndarray]]:
         if "h" not in host:
-            host["h"] = fetch.wait()
+            host["h"] = _wait_all(fetches)
         return host["h"]
 
-    def make_harvest(t: int, lay: PaddedLayout):
+    def make_harvest(i: int, t: int, lay: PaddedLayout):
         def harvest():
-            h = materialize()
+            h = materialize()[i]
             pf, ef, kids_h, ys_h = h[:4]
             gens = []
             for g in range(k):
@@ -1246,14 +1407,15 @@ def run_segments(models: Sequence[TorchCostModel],
         return harvest
 
     results: List[SegmentResult] = []
-    for t, lay in enumerate(lays):
-        r = SegmentResult(gens=None, final_pop=None, final_edp=None,
-                          carry=(pop[t], edp[t]),
-                          harvest=make_harvest(t, lay))
-        if not defer:
-            r.resolve()
-        if restart:
-            h = materialize()
-            r.state = (float(h[6][t]), int(h[7][t]))
-        results.append(r)
+    for i, run in enumerate(runs):
+        for t, lay in enumerate(run.lays):
+            r = SegmentResult(gens=None, final_pop=None, final_edp=None,
+                              carry=(run.pop[t], run.edp[t]),
+                              harvest=make_harvest(i, t, lay))
+            if not defer:
+                r.resolve()
+            if restart:
+                h = materialize()[i]
+                r.state = (float(h[6][t]), int(h[7][t]))
+            results.append(r)
     return results

@@ -10,8 +10,10 @@ dimensions over the ranks of the current group, one process per device
 * :func:`make_test_mesh`: a small mesh over the group's first ranks.
 
 The functions build nothing at import; each needs an initialised process
-group.  The reference's ``make_search_mesh`` (the fleet's row sharding)
-is not here: the fleet side of multi-device waits for its own slice.
+group — except :func:`make_search_mesh`, the fleet's mesh, which is a
+list of devices in this one process (``core.torch_cost.SearchMesh``): the
+fleet shards its rows or tasks over devices from one host loop, as the
+reference's ``shard_map`` does, and needs no process group.
 """
 from __future__ import annotations
 
@@ -60,6 +62,40 @@ def make_test_mesh(shape: Tuple[int, ...] = (2, 2),
     if have < n:
         raise RuntimeError(f"need {n} devices, have {have}")
     return _mesh(tuple(shape), tuple(axes))
+
+
+def make_search_mesh(n_devices: Optional[int] = None, axis: str = "rows",
+                     device=None):
+    """1-D mesh for sharding search mega-batches and segment fleets
+    (``torch_cost.eval_stacked`` shards batch rows, ``run_segments`` the
+    task axis).  On CUDA (``device=None`` or a ``cuda`` device) it takes
+    the first ``n_devices`` visible GPUs, every one by default, and
+    raises ``RuntimeError`` naming both counts when fewer are visible;
+    ``device="cpu"`` gives ``n_devices`` shards of the CPU (the tests'
+    mesh).  Returns ``None`` for one device, so callers can pass the
+    result straight to ``FleetConfig(mesh=...)`` and keep the unsharded
+    path."""
+    import torch
+    from ..core.torch_cost import SearchMesh
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cpu":
+        n = 1 if n_devices is None else int(n_devices)
+        devices = [torch.device("cpu")] * n
+    elif dev.type == "cuda":
+        have = torch.cuda.device_count()
+        n = have if n_devices is None else int(n_devices)
+        if n > have or have == 0:
+            raise RuntimeError(f"need {max(n, 1)} devices, have {have}")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    else:
+        raise ValueError(f"a search mesh runs on CUDA or the CPU, not "
+                         f"{dev.type!r}")
+    if n < 1:
+        raise ValueError(f"a search mesh needs at least one device, got "
+                         f"n_devices={n_devices}")
+    if n == 1:
+        return None
+    return SearchMesh(tuple(devices), (axis,))
 
 
 def set_batch_axes_override(axes: Optional[Tuple[str, ...]]) -> None:

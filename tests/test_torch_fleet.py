@@ -322,7 +322,7 @@ def test_fleet_config_json_is_the_references(kw):
 
 
 def test_fleet_config_validation():
-    with pytest.raises(ValueError, match="mesh"):
+    with pytest.raises(ValueError, match="None or a SearchMesh"):
         FleetConfig(mesh=object())
     with pytest.raises(ValueError):
         FleetConfig(device_rounds=0)
