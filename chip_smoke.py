@@ -97,7 +97,13 @@ where there is no CUDA device or the port's package is missing.  It
     an NCCL process group, a (1, 1) ("data", "model") ``DeviceMesh``, the
     self-test's four checks (pipeline, int8 all-reduce, sharded vs single
     train step, elastic restore) and ``run_train`` of the 8-layer
-    ``qwen2-vl-7b`` in fp32 over the mesh against the un-meshed run;
+    ``qwen2-vl-7b`` in fp32 over the mesh against the un-meshed run; then,
+    with one card, two gloo ranks sharing it: a (1, 2) tensor-parallel
+    mesh (qwen2-vl, 2 layers) and a (2, 1) data-parallel MoE mesh (arctic,
+    1 layer of 8 experts), fp32, each against the world of one; with four
+    or more cards, one NCCL rank a card: the 8-layer qwen2-vl on (1, 4)
+    and (2, 2) against one card, then ``mistral-nemo-12b`` at its full 40
+    layers on (1, 4) (peak memory, ms a step, collective bytes);
 13. holds the GPU evaluator against the CPU one on 262,144 genomes per
     workload and measures its rows per second;
 14. holds each kernel against its plain PyTorch version on the card — the
@@ -153,12 +159,17 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def card_line() -> str:
+def card_lines() -> list:
+    """``nvidia-smi``'s name and power limit of every visible card."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def card_line() -> str:
+    return card_lines()[0]
 
 
 # ------------------------------------------------------------------ timing
@@ -2189,8 +2200,8 @@ def _routes_recorded():
     seen = []
     fn = moe.route
 
-    def wrapped(xg, wg, top_k):
-        out = fn(xg, wg, top_k)
+    def wrapped(*a, **kw):
+        out = fn(*a, **kw)
         seen.append(out[2].detach().clone())
         return out
 
@@ -3230,18 +3241,176 @@ def vlm_phase(device):
 # fp32 weights, their sharded copies, gradients and moments (~59 GB) fit
 DIST_TRAIN = dict(layers=8, seq=1024, batch=1, steps=2)
 DIST_LOSS_RTOL = 1e-5
+# the first step's gradients against the world of one's: the norm of a
+# leaf's difference over the leaf's norm, and every element over the
+# leaf's largest (the train line's gradient tolerance)
+DIST_GRAD_RTOL = 1e-5
+DIST_GRAD_MAX = 1e-4
+# after the first step the two runs' leaves differ by what AdamW's first
+# update makes of their gradients' difference, which the check predicts
+# element by element (``selftest._first_step``): an element whose
+# gradient is near 0 turns a last-bit difference into a step of up to
+# 2·lr (lr 1e-3).  What is left is rounding (ulps of the leaf), held
+# within 1e-6 of the leaf's largest element: a wrong sharded update of
+# any element shows there.  After the last step the leaves are held, in
+# norm and by element, to 1e-4 / 1e-2, above the card's largest
+# readings, 5.0e-5 / 2.8e-3, which are the first step's gap (PERF.md §6)
+DIST_FIRST_STEP_MAX = 1e-6
+DIST_LEAF_RTOL = 1e-4
+DIST_LEAF_MAX = 1e-2
+# every card visible (4 or more): the same 8-layer qwen2-vl in fp32 on a
+# (1, 4) and a (2, 2) NCCL mesh, batch 2 (a row for each "data" rank)
+DIST_MESHES = ((1, 4), (2, 2))
+DIST_MESH_TRAIN = dict(layers=8, seq=1024, batch=2, steps=2)
+# then mistral-nemo-12b at its full 40 layers, bf16, on (1, 4): what no
+# card holds alone (master, moments and weights ~98 GB + activations)
+DIST_BIG = dict(mesh=(1, 4), seq=4096, batch=1, steps=4, warmup=1)
+# one card: two gloo ranks share it (NCCL refuses a duplicate GPU); a
+# (1, 2) tensor-parallel mesh on qwen2-vl cut to 2 layers, and a (2, 1)
+# data-parallel mixture-of-experts mesh on arctic cut to 1 layer of 8
+# experts (its flat dispatch drops ~22 % of the slots at random weights),
+# fp32, each rank holding the world of one too
+DIST_SHARED = dict(tp=dict(arch=VLM_ARCH, mesh=(1, 2), layers=2),
+                   moe=dict(arch="arctic-480b", mesh=(2, 1), layers=1,
+                            experts=8))
+DIST_SHARED_STEP = dict(batch=2, seq=512, steps=2)
+
+
+def _fp32(cfg, **kw):
+    import dataclasses
+    return dataclasses.replace(cfg, param_dtype="float32",
+                               compute_dtype="float32", **kw)
+
+
+def _parity_checked(outs, what):
+    for o in outs:
+        check(o["loss_rel_err"] <= DIST_LOSS_RTOL and
+              o["worst_grad_rel_norm"] <= DIST_GRAD_RTOL and
+              o["worst_grad_err_over_max"] <= DIST_GRAD_MAX and
+              o["first_step_unexplained_over_max"] <= DIST_FIRST_STEP_MAX
+              and
+              o["worst_leaf_rel_norm"] <= DIST_LEAF_RTOL and
+              o["worst_leaf_err_over_max"] <= DIST_LEAF_MAX,
+              f"dist: {what}: loss {o['loss_rel_err']}, gradient "
+              f"{o['worst_grad_rel_norm']} / {o['worst_grad_err_over_max']}"
+              f" ({o['worst_grad_leaf']}), first step unexplained "
+              f"{o['first_step_unexplained_over_max']} "
+              f"({o['first_step_unexplained_leaf']}), leaf "
+              f"{o['worst_leaf_rel_norm']}"
+              f" / {o['worst_leaf_err_over_max']} ({o['worst_leaf']}) "
+              f"against the world of one")
+    o = outs[0]
+    return {k: o[k] for k in ("mesh", "steps", "losses_single",
+                              "losses_sharded", "loss_rel_err",
+                              "worst_grad_rel_norm",
+                              "worst_grad_err_over_max", "worst_grad_leaf",
+                              "worst_leaf_rel_norm",
+                              "worst_leaf_err_over_max", "worst_leaf",
+                              "first_step_unexplained_over_max",
+                              "first_step_unexplained_leaf",
+                              "first_step_leaf_rel_norm", "param_bytes", "spec_param_bytes",
+                              "leaf_gathers")}
+
+
+def dist_shared_card(device_type="cuda"):
+    """Two gloo ranks share the one card: ``selftest.sharded_step_parity``
+    of a (1, 2) tensor-parallel mesh and a (2, 1) data-parallel MoE mesh
+    against the world of one, in fp32."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import selftest
+    from repro_torch.distributed.launch import spawn
+    out = {}
+    st = DIST_SHARED_STEP
+    for name, run in DIST_SHARED.items():
+        extra = dict(n_experts=run["experts"]) if "experts" in run else {}
+        cfg = _fp32(get_config(run["arch"]), n_super=run["layers"], **extra)
+        t0 = time.perf_counter()
+        outs = spawn(selftest.sharded_step_parity, 2,
+                     (cfg, run["mesh"], st["batch"], st["seq"],
+                      st["steps"]), device_type=device_type,
+                     backend="gloo", timeout=900.0)
+        out[name] = dict(arch=run["arch"], layers=run["layers"], **extra,
+                         **_parity_checked(outs, f"{name} {run['mesh']}"),
+                         seconds=time.perf_counter() - t0)
+    return out
+
+
+def dist_every_card(device, device_type="cuda"):
+    """Four NCCL ranks, one a card: the 8-layer qwen2-vl in fp32 on each
+    mesh of ``DIST_MESHES`` against the un-meshed run (every step's
+    loss), then 40-layer mistral-nemo-12b on ``DIST_BIG["mesh"]`` for a
+    few steps: each rank's peak memory, the step time, the collectives'
+    bytes a step by kind, the bytes held beside the specs' share."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import selftest
+    from repro_torch.distributed.launch import spawn
+    from repro_torch.launch.train import run_train
+    import torch
+    tr = DIST_MESH_TRAIN
+    cfg = _fp32(get_config(VLM_ARCH), n_super=tr["layers"])
+    kw = dict(steps=tr["steps"], batch=tr["batch"], seq=tr["seq"],
+              log_every=1)
+    single = run_train(cfg, device=device, log=lambda line: None,
+                       **kw)["losses"]
+    if device_type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    out = dict(cards=card_lines(), parity=[])
+    for shape in DIST_MESHES:
+        reps = spawn(selftest.mesh_train_report, 4, (cfg, shape, kw),
+                     device_type=device_type, timeout=900.0)
+        for r in reps:
+            rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"], single)]
+            check(len(rel) == tr["steps"] and max(rel) <= DIST_LOSS_RTOL,
+                  f"dist: {shape} losses {r['losses']} against {single}")
+        out["parity"].append(dict(
+            mesh=list(shape), arch=VLM_ARCH, layers=tr["layers"],
+            losses_single=single, losses_mesh=reps[0]["losses"],
+            loss_rel_err=max(abs(a - b) / abs(b) for a, b in
+                             zip(reps[0]["losses"], single)),
+            ms_per_step=[r["step_s"][-1] * 1e3 for r in reps],
+            peak_bytes=[r["peak_bytes"] for r in reps]))
+    big = DIST_BIG
+    kw = dict(steps=big["steps"], batch=big["batch"], seq=big["seq"],
+              log_every=1)
+    t0 = time.perf_counter()
+    reps = spawn(selftest.mesh_train_report, 4,
+                 (get_config(LM_ARCH), big["mesh"], kw),
+                 device_type=device_type, timeout=900.0)
+    for r in reps:
+        check(all(math.isfinite(x) for x in r["losses"]) and
+              r["losses"] == reps[0]["losses"],
+              f"dist: {LM_ARCH} on {big['mesh']}: losses {r['losses']}")
+    w = big["warmup"]
+    out["big"] = dict(
+        arch=LM_ARCH, layers=get_config(LM_ARCH).n_layers,
+        mesh=list(big["mesh"]), seq=big["seq"], batch=big["batch"],
+        dtype="bfloat16", moments="float32", remat="full",
+        losses=reps[0]["losses"],
+        ms_per_step=[sum(r["step_s"][w:]) / len(r["step_s"][w:]) * 1e3
+                     for r in reps],
+        peak_bytes=[r["peak_bytes"] for r in reps],
+        param_bytes=[r["param_bytes"] for r in reps],
+        param_bytes_by_specs=reps[0]["param_bytes_by_specs"],
+        moment_bytes=[r["moment_bytes"] for r in reps],
+        moment_bytes_by_specs=reps[0]["moment_bytes_by_specs"],
+        coll_bytes_per_step=reps[0]["coll_bytes_per_step"],
+        coll_calls_per_step=reps[0]["coll_calls_per_step"],
+        leaf_gathers=reps[0]["leaf_gathers"],
+        seconds=time.perf_counter() - t0)
+    return out
 
 
 def dist_phase(device):
-    """The multi-device training path on the card's world of one: an NCCL
-    process group and a (1, 1) ("data", "model") ``DeviceMesh``; the
+    """The multi-device training path.  On the card's world of one: an
+    NCCL process group and a (1, 1) ("data", "model") ``DeviceMesh``; the
     self-test's four checks (the GPipe pipeline, the int8 all-reduce, the
     sharded train step against the single one, an elastic restore), then
     ``run_train`` of the 8-layer ``qwen2-vl-7b`` in fp32 with ``mesh=``
     (``--mesh 1x1``) against the un-meshed run: every step's loss within
-    1e-5 relative, and both step times."""
-    import dataclasses
-
+    1e-5 relative, and both step times.  Then, with 4 or more cards
+    visible, :func:`dist_every_card`; with fewer,
+    :func:`dist_shared_card`."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.distributed import selftest
@@ -3250,8 +3419,7 @@ def dist_phase(device):
     from repro_torch.launch.train import run_train
 
     tr = DIST_TRAIN
-    cfg = dataclasses.replace(get_config(VLM_ARCH), n_super=tr["layers"],
-                              param_dtype="float32", compute_dtype="float32")
+    cfg = _fp32(get_config(VLM_ARCH), n_super=tr["layers"])
     out = dict(arch=VLM_ARCH, world=1, backend="nccl", mesh=[1, 1],
                train=dict(layers=tr["layers"], positions=tr["seq"],
                           batch=tr["batch"], steps=tr["steps"],
@@ -3294,6 +3462,17 @@ def dist_phase(device):
         max_memory_allocated_bytes_single=single_peak,
         max_memory_allocated_bytes_mesh=torch.cuda.max_memory_allocated(
             device))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    out["cards"] = cards
+    if cards >= 4:
+        out["design"] = "every card: one NCCL rank a card"
+        out["every_card"] = dist_every_card(device)
+    else:
+        out["design"] = ("one card: two gloo ranks share it (NCCL refuses "
+                         "a duplicate GPU)")
+        out["shared_card"] = dist_shared_card()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     out["card"] = card_line()
@@ -3976,7 +4155,6 @@ def main(argv=None) -> int:
 
     card = card_line()
     print(card, flush=True)
-
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     t0 = time.perf_counter()

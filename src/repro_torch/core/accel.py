@@ -72,11 +72,16 @@ PLATFORMS = {p.name: p for p in (EDGE, MOBILE, CLOUD)}
 # NVIDIA H100 SXM5 roofline constants (NVIDIA H100 Tensor Core GPU
 # datasheet: dense BF16 989 TFLOP/s, HBM3 3.35 TB/s, 80 GB; fourth-
 # generation NVLink 900 GB/s total = 18 links x 25 GB/s per direction).
-# Used by core.autoshard, not by the paper's cost model above.  The
+# NVLink joins the 8 GPUs of one node; a mesh dimension wider than 8
+# spans nodes, and a DGX H100 gives each GPU one 400 Gb/s ConnectX-7 port
+# to the others (50 GB/s per direction).  Used by core.autoshard and the
+# dry-run's roofline terms, not by the paper's cost model above.  The
 # reference's TPU_V5E constants stay out of the port.
 H100_SXM = dict(
     peak_bf16_flops=989e12,             # per GPU, dense
     hbm_bw_bytes_per_s=3.35e12,         # per GPU
     ici_link_bw_bytes_per_s=18 * 25e9,  # NVLink 4, all links, per direction
+    inter_node_bw_bytes_per_s=50e9,     # one 400 Gb/s NIC per GPU
+    gpus_per_node=8,                    # NVLink domain of one DGX H100
     hbm_bytes=80e9,                     # capacity per GPU
 )

@@ -46,10 +46,8 @@ def _mesh_2d(world: int) -> Tuple[int, int]:
 
 
 def _device() -> torch.device:
-    import torch.distributed as dist
-    if dist.get_backend() == "nccl":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+    from .launch import rank_device
+    return rank_device()
 
 
 def check_pipeline() -> Dict:
@@ -122,46 +120,225 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
                         seq: int = 32, steps: int = 1,
                         lr: float = 1e-3) -> Dict:
     """``steps`` train steps of ``cfg`` (weights from seed 0) on one batch
-    drawn with numpy, by ``build_train_step`` on this rank alone and by
-    ``build_sharded_train_step`` over a (data, model) mesh of ``shape``:
-    the worst relative loss difference and, after the last step, the
-    worst parameter difference over its leaf's largest element."""
+    drawn with numpy (with a vision model's ``frontend`` and an
+    encoder-decoder's ``enc_embeds``), by ``build_train_step`` on this
+    rank alone and by ``build_sharded_train_step`` over a (data, model)
+    mesh of ``shape`` on this rank's shards: the worst relative loss
+    difference; the first step's gradients (averaged over "data",
+    gathered whole) against the world of one's, the worst difference over
+    its leaf's norm and over its largest element; after the last step,
+    the same of the parameters; after the first step, the two runs'
+    parameters' difference against the one AdamW's first update makes of
+    their gradients' difference (:func:`_first_step`), the worst over its
+    leaf's largest element; the sharded model's parameter bytes
+    beside the specs' share over "model" (every leaf's whole bytes over
+    the "model" size where its spec names "model"), the leaves whose
+    bytes are not that share, and the leaves the sharded steps gathered
+    whole, by axis (``sharding.stats``)."""
     from ..launch.mesh import make_test_mesh
-    from ..launch.steps import build_sharded_train_step, build_train_step
+    from ..launch.steps import (build_sharded_train_step, build_train_step,
+                                loss_and_grads)
+    from ..models import sharding
     from ..models.model import Model
     from ..optim import optimizer as opt
     dev = _device()
     mesh = make_test_mesh(shape, ("data", "model"))
+    ax = sharding.mesh_axis(mesh, "model")
+    dax = sharding.mesh_axis(mesh, "data")
     rng = np.random.default_rng(2)
     data = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                              (batch, seq))).to(dev)
             for k in ("tokens", "labels")}
+    extra = {"vision": ("frontend", cfg.n_frontend_tokens),
+             "audio": ("enc_embeds", seq)}.get(cfg.frontend)
+    if extra is not None:
+        data[extra[0]] = torch.from_numpy(rng.standard_normal(
+            (batch, extra[1], cfg.d_model)).astype(np.float32)).to(dev)
     ocfg = opt.OptConfig(lr=lr, warmup_steps=1, total_steps=10)
     runs = []
     for sharded in (False, True):
         model = Model(cfg, device=dev,
+                      tp=(ax.rank, ax.size) if sharded else None,
                       generator=torch.Generator(device=dev).manual_seed(0))
         model.requires_grad_(True)
         params = dict(model.named_parameters())
+        layout = model.layout()
+        if sharded:
+            rows = {k: sharding.shard_of(v, 0, dax.rank, dax.size)
+                    for k, v in data.items()}
+            with sharding.parallel(model=ax, data=dax):
+                _, grads = loss_and_grads(model, rows)
+            grads = {n: sharding.all_reduce(g.float(), dax) / dax.size
+                     for n, g in grads.items()}
+        else:
+            _, grads = loss_and_grads(model, data)
+        grads = _whole(grads, layout, ax if sharded else None)
         state = opt.init(params, ocfg)
         step = build_sharded_train_step(model, ocfg, state, mesh) \
             if sharded else build_train_step(model, ocfg, state)
-        losses = [float(step(data)["loss"]) for _ in range(steps)]
-        final = {n: (step.master[n].full_tensor() if sharded else p
-                     ).detach().float() for n, p in params.items()}
-        runs.append((losses, final))
+        sharding.stats.reset()
+        out = step(data)
+        losses = [float(out["loss"])]
+        # the first update's scalars, as the step took them from its norm
+        k = opt.step_scalars(opt.OptState(
+            torch.zeros((), dtype=torch.int32), {}, {}),
+            out["grad_norm"].float().cpu(), ocfg)
+        if sharded:
+            first = _first_step(first, params, layout, ax, runs[0][1],
+                                grads, (k_one, k), ocfg)
+        else:
+            first, k_one = _whole({n: p.detach() for n, p in
+                                   params.items()}, layout, None), k
+        losses += [float(step(data)["loss"]) for _ in range(steps - 1)]
+        gathers = sharding.stats.as_dict()["leaf_gathers"]
+        final = _whole({n: p.detach() for n, p in params.items()}, layout,
+                       ax if sharded else None)
+        if sharded:
+            held, share, off = 0, 0.0, []
+            for n, p in params.items():
+                whole = final[n].numel() * p.element_size()
+                want = whole / (ax.size if sharding.model_dim(
+                    layout[n].spec) is not None else 1)
+                have = p.numel() * p.element_size()
+                held, share = held + have, share + want
+                if have != want:
+                    off.append(n)
+            report = dict(param_bytes=held, spec_param_bytes=share,
+                          not_the_share=off, leaf_gathers=gathers,
+                          gathered_at_step=[n for n in params if
+                                            layout[n].gather == "step"])
+        runs.append((losses, grads, final))
         del model, step, state
-    (l1, p1), (l2, p2) = runs
+    (l1, g1, p1), (l2, g2, p2) = runs
     loss_rel = max(abs(a - b) / abs(a) for a, b in zip(l1, l2))
-    worst, leaf = 0.0, None
-    for n in p1:
-        err = float((p1[n] - p2[n]).abs().max()) / \
-            max(float(p1[n].abs().max()), 1e-30)
-        if err > worst:
-            worst, leaf = err, n
+    gmax, gleaf, gnorm = _worst(g1, g2)
+    worst, leaf, worst_norm = _worst(p1, p2)
     return dict(mesh=list(shape), steps=steps, losses_single=l1,
                 losses_sharded=l2, loss_rel_err=loss_rel,
-                worst_leaf_err_over_max=worst, worst_leaf=leaf)
+                worst_grad_err_over_max=gmax, worst_grad_leaf=gleaf,
+                worst_grad_rel_norm=gnorm,
+                worst_leaf_err_over_max=worst, worst_leaf=leaf,
+                worst_leaf_rel_norm=worst_norm, **first, **report)
+
+
+def _whole(leaves: Dict[str, torch.Tensor], layout, ax) -> Dict:
+    """fp32 host copies of ``leaves`` (a model's parameters or gradients
+    by name: compared on the host, beside the models on the device; a
+    copy even of a host fp32 leaf, which the steps update in place), each
+    gathered whole over "model" (``ax``) where ``layout`` holds it sliced.
+    Plain collectives: DTensor's functional ones crash under gloo on CUDA
+    tensors (two ranks on one card)."""
+    from ..models import sharding
+    out = {}
+    for n, t in leaves.items():
+        dim = layout[n].shard_dim
+        if ax is not None and dim is not None:
+            t = sharding.all_gather(t, ax, dim)
+        out[n] = t.detach().to("cpu", torch.float32, copy=True)
+    return out
+
+
+def _first_step(one: Dict[str, torch.Tensor], params, layout, ax,
+                g_one: Dict[str, torch.Tensor], g: Dict[str, torch.Tensor],
+                ks, ocfg, chunk: int = 1 << 24) -> Dict:
+    """The sharded run's parameters ``params`` after its first step (each
+    gathered whole in turn) against the world of one's, ``one``.  Both
+    started from the same leaves, so AdamW's first update predicts their
+    difference element by element from the two runs' gradients ``g_one``
+    / ``g`` and step scalars ``ks``: ``u(g) - u(g_one)``, ``u`` the
+    update of a zero parameter (``optimizer.update_leaf``).  An element
+    whose gradient is near 0 turns the gradients' last-bit difference
+    into a step of up to 2·lr, and the prediction holds that too; what is
+    left is rounding, or a wrong sharded update.  Returns the worst
+    ``|difference - prediction|`` over its leaf's largest element (the
+    leaf named), and the worst difference itself over its leaf's norm.
+    The host copies go to the parameters' device a chunk at a time."""
+    from ..models import sharding
+    from ..optim import optimizer as opt
+    worst, leaf, gap = 0.0, None, 0.0
+    dev = next(iter(params.values())).device
+    for n, a in one.items():
+        b = params[n].detach()
+        if ax is not None and layout[n].shard_dim is not None:
+            b = sharding.all_gather(b, ax, layout[n].shard_dim)
+        b, a = b.float().reshape(-1), a.reshape(-1)
+        err = d_sq = a_sq = 0.0
+        for i in range(0, a.numel(), chunk):
+            part = slice(i, i + chunk)
+            u = []
+            for grads, k in zip((g_one, g), ks):
+                gi = grads[n].reshape(-1)[part].to(dev)
+                p, m, v = (torch.zeros_like(gi) for _ in range(3))
+                opt.update_leaf(p, gi, m, v, k, ocfg)
+                u.append(p)
+            ai = a[part].to(dev)
+            d = b[part] - ai
+            err = max(err, float((d - (u[1] - u[0])).abs().max()))
+            d_sq += float(torch.sum(torch.square(d)))
+            a_sq += float(torch.sum(torch.square(ai)))
+        err /= max(float(a.abs().max()), 1e-30)
+        if err > worst:
+            worst, leaf = err, n
+        gap = max(gap, math.sqrt(d_sq) / max(math.sqrt(a_sq), 1e-30))
+    return dict(first_step_unexplained_over_max=worst,
+                first_step_unexplained_leaf=leaf,
+                first_step_leaf_rel_norm=gap)
+
+
+def _worst(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]):
+    """The worst over leaves of ``|a - b|``'s largest element over ``a``'s
+    largest, its leaf, and the worst ``‖a - b‖ / ‖a‖``."""
+    worst, leaf, worst_norm = 0.0, None, 0.0
+    for n in a:
+        err = float((a[n] - b[n]).abs().max()) / \
+            max(float(a[n].abs().max()), 1e-30)
+        if err > worst:
+            worst, leaf = err, n
+        worst_norm = max(worst_norm, float(
+            torch.linalg.vector_norm(a[n] - b[n]) /
+            max(float(torch.linalg.vector_norm(a[n])), 1e-30)))
+    return worst, leaf, worst_norm
+
+
+def mesh_train_report(cfg, shape: Tuple[int, int], kwargs: Dict) -> Dict:
+    """One rank of ``launch.train.run_train(cfg, mesh=...)`` over a (data,
+    model) mesh of ``shape`` (every rank of the group calls it): the
+    losses, the host seconds of each step, the bytes of the parameters
+    and moments the rank holds beside the specs' share, its peak device
+    memory (CUDA), and the
+    collectives' operand bytes and calls of one step, by kind and axis
+    (``sharding.stats`` over the run, over the steps run)."""
+    from ..launch.mesh import make_test_mesh
+    from ..launch.specs import state_bytes_by_specs
+    from ..launch.train import run_train
+    from ..models import sharding
+    from ..optim.optimizer import OptConfig
+    dev = _device()
+    mesh = make_test_mesh(shape, ("data", "model"))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sharding.stats.reset()
+    out = run_train(cfg, device=dev, mesh=mesh, log=lambda line: None,
+                    **kwargs)
+    steps = len(out["losses"])
+    coll = sharding.stats.as_dict()
+    ostate = out["opt_state"]
+    by_specs = state_bytes_by_specs(out["model"], dict(zip(
+        ("data", "model"), shape)), OptConfig())
+    return dict(
+        losses=out["losses"], step_s=out["step_s"],
+        param_bytes_by_specs=by_specs[0], moment_bytes_by_specs=by_specs[1],
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in out["model"].parameters()),
+        moment_bytes=sum(t.to_local().numel() * t.to_local().element_size()
+                         for t in [*ostate.mu.values(), *ostate.nu.values()]),
+        peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                    if dev.type == "cuda" else None),
+        coll_bytes_per_step={k: v / steps for k, v in coll["bytes"].items()},
+        coll_calls_per_step={k: v / steps for k, v in coll["calls"].items()},
+        coll_bytes_by_axis_per_step={k: v / steps for k, v in
+                                     coll["by_axis"].items()},
+        leaf_gathers={a: len(c) for a, c in coll["leaf_gathers"].items()})
 
 
 def check_sharded_train_step() -> Dict:

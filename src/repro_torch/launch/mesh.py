@@ -24,7 +24,14 @@ _BATCH_AXES_OVERRIDE: Optional[Tuple[str, ...]] = None
 
 
 def _device_type() -> str:
+    """The device type of this rank's devices: the launcher's (gloo may
+    carry CUDA tensors), else the backend's (``nccl``: CUDA)."""
     import torch.distributed as dist
+
+    from ..distributed import launch
+    device = launch.rank_device_or_none()
+    if device is not None:
+        return device.type
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 

@@ -19,10 +19,11 @@ encoder-decoder's ``enc_embeds`` too, a vision-language model's
 ``--mesh DxM`` (``D`` alone means ``Dx1``) trains over a (data, model)
 ``DeviceMesh`` of D·M ranks, one process per device, which the CLI
 starts itself (``distributed.launch.spawn``; a world of one runs in this
-process): gloo on the CPU, NCCL on the GPUs, rank r on GPU r.  The
-parameters are placed by ``Model.param_specs()``, the moments by ZeRO-1,
-the batch on ("data",) (``steps.build_sharded_train_step``); rank 0
-prints the lines an un-meshed run prints.  Refused, with exit code 2 and
+process): gloo on the CPU, NCCL on the GPUs, rank r on GPU r.  Each rank
+builds only its shards over "model" (``Model(cfg, tp=...)``) and
+computes on them; the moments are ZeRO-1 slices over "data", the batch's
+rows go over "data" (``steps.build_sharded_train_step``); rank 0 prints
+the lines an un-meshed run prints.  Refused, with exit code 2 and
 the reason on stderr, before anything is built: an arch with a block
 kind the port does not have, a missing device, and a mesh of more ranks
 than GPUs.
@@ -96,7 +97,12 @@ def run_train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
     data = make_data(cfg, shape)
     ocfg = opt.OptConfig(lr=lr, warmup_steps=max(steps // 20, 1),
                          total_steps=steps)
-    model = Model(cfg, device=device,
+    tp = None
+    if mesh is not None and "model" in (mesh.mesh_dim_names or ()):
+        from ..models.sharding import mesh_axis
+        ax = mesh_axis(mesh, "model")
+        tp = (ax.rank, ax.size)         # only this rank's shards
+    model = Model(cfg, device=device, tp=tp,
                   generator=torch.Generator(device=device).manual_seed(0))
     model.requires_grad_(True)
     params = dict(model.named_parameters())
@@ -162,10 +168,10 @@ def _train_rank(cfg, shape: Tuple[int, int], kwargs: Dict[str, Any]):
     losses; rank 0 logs."""
     import torch.distributed as dist
 
+    from ..distributed.launch import rank_device
     from .mesh import make_test_mesh
     rank = dist.get_rank()
-    device = torch.device("cuda", rank) if dist.get_backend() == "nccl" \
-        else torch.device("cpu")
+    device = rank_device()
     mesh = make_test_mesh(shape, ("data", "model"))
     log = (lambda line: print(line, flush=True)) if rank == 0 else \
         (lambda line: None)

@@ -13,8 +13,8 @@ from the device):
   operands go to the kernel as contiguous ``[B, H, S, hd]``.  On CUDA tensors the kernel is launched or
   the call raises; on CPU tensors the wrapper runs its plain version.
 * ``"chunked"`` — everything else (a window, an offset, ``Sq != Sk``, a
-  head size or length the kernel does not take, or an input that needs a
-  gradient while autograd records: the kernel has no backward, and
+  head size or length the kernel does not take, ``meta`` tensors, or an
+  input that needs a gradient while autograd records: the kernel has no backward, and
   neither has the reference's): fp32 scores and softmax in query chunks
   of ``chunk`` rows, as the reference computes them.  This route is
   differentiable.
@@ -65,6 +65,9 @@ def attention_route(q: torch.Tensor, k: torch.Tensor, causal: bool,
     if flash_lib.needs_grad(q, k, v):
         return "chunked", ("an input needs a gradient and the kernel has "
                            "no backward (nor has the reference's)")
+    if q.device.type == "meta":
+        return "chunked", ("meta tensors (the dry-run): no kernel "
+                           "launches on them")
     if not causal:
         return "flash", ("not causal, Sq == Sk in the kernel's shapes: its "
                          "full mode")

@@ -19,6 +19,25 @@ so a JAX parameter tree copies over leaf for leaf
 device in the parameter dtype (Mamba-2's ``a_log``, ``d_skip`` and
 ``dt_bias`` in fp32, as the reference's) and need no gradient until the
 model is made trainable.
+
+Built under :func:`sharding.build_shards` (``Model(cfg, tp=(rank, m))``),
+every leaf whose spec names "model" keeps only the rank's slice, drawn
+whole and sliced, so the draws are the world of one's.  The attention
+block, the MLP, the experts and (in ``Model``) the embeddings then
+compute on their shards, Megatron's way: ``wq`` / ``wk`` / ``wv`` and
+``w1`` / ``w3`` are column-parallel on the rank's heads and hidden units
+behind one :func:`sharding.copy_to_model`, ``wo`` and ``w2`` are
+row-parallel with one :func:`sharding.reduce_from_model` after each, and
+the experts run expert-parallel (``moe.moe_ffn(expert_parallel=True)``).
+Where the heads do not split whole over the group (:func:`heads_split`),
+the leaves concerned stay sharded in storage and are gathered whole at
+use: only ``wk`` / ``wv`` where each rank's query heads read one K/V head
+(cut to that head's columns before the product), all four where the
+query heads do not split, and that attention is computed whole.  The recurrent blocks
+(``COMPUTES_ON_SHARDS = False``) are built whole and compute whole:
+their packed projections (``in_proj``'s z/x/B/C/dt, ``wx``'s four
+gates) do not split by heads as a plain column slice, so the train step
+gathers their leaves over "model" (``Model.layout``).
 """
 from __future__ import annotations
 
@@ -31,15 +50,35 @@ from torch import nn
 
 from . import attention as attn_lib
 from . import moe as moe_lib
+from . import sharding
 from . import ssm as ssm_lib
 from .config import ModelConfig
-from .sharding import P, mdl
-from .layers import (_init_dense, apply_m_rope, apply_rope, dtype_of, mlp,
-                     rms_norm)
+from .sharding import P, mdl, model_dim
+from .layers import (_init_dense, apply_m_rope, apply_rope, draw_normal,
+                     dtype_of, mlp, rms_norm)
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+def _param(t: torch.Tensor, spec: Optional[P] = None) -> nn.Parameter:
+    """A leaf that needs no gradient; under :func:`sharding.build_shards`
+    only its slice along the dimension ``spec`` names "model"."""
+    return nn.Parameter(sharding.keep_shard(t, spec), requires_grad=False)
+
+
+def heads_split(cfg: ModelConfig, m: int) -> str:
+    """How the attention's heads split over a "model" group of ``m``:
+    ``"whole"`` (every rank holds whole query heads and the whole K/V
+    heads they read), ``"kv"`` (whole query heads, all of which read one
+    K/V head, while the K/V heads themselves do not split: ``wk`` / ``wv``
+    are gathered at use and cut to the rank's head), or ``"none"`` (the
+    query heads do not split: all four leaves are gathered at use)."""
+    specs = _attn_leaf_specs(cfg)
+    if not all(model_dim(sp) is not None for sp in specs.values()) or \
+            cfg.n_heads % m:
+        return "none"
+    if cfg.n_kv_heads % m == 0:
+        return "whole"
+    local, n_rep = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
+    return "kv" if n_rep % local == 0 else "none"
 
 
 def _ones(cfg: ModelConfig, gen: torch.Generator) -> nn.Parameter:
@@ -50,9 +89,7 @@ def _ones(cfg: ModelConfig, gen: torch.Generator) -> nn.Parameter:
 def _draw(gen: torch.Generator, shape, std: float,
           dtype: torch.dtype) -> torch.Tensor:
     """``normal * std`` drawn in fp32 on ``gen``'s device, cast."""
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return w.mul_(std).to(dtype)
+    return draw_normal(gen, shape).mul_(std).to(dtype)
 
 
 def _no_aux(x: torch.Tensor) -> torch.Tensor:
@@ -61,67 +98,144 @@ def _no_aux(x: torch.Tensor) -> torch.Tensor:
 
 
 def _randn(gen: torch.Generator, shape, std: float,
-           dtype: torch.dtype) -> nn.Parameter:
-    return _param(_draw(gen, shape, std, dtype))
+           dtype: torch.dtype, spec: Optional[P] = None) -> nn.Parameter:
+    return _param(_draw(gen, shape, std, dtype), spec)
+
+
+def _attn_leaf_specs(cfg: ModelConfig) -> Dict[str, P]:
+    """Megatron's column/row split of ``_AttnParams`` over "model"."""
+    q, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    return dict(wq=P(None, mdl(q)), wk=P(None, mdl(kv)), wv=P(None, mdl(kv)),
+                wo=P(mdl(q), None))
+
+
+def _mlp_leaf_specs(cfg: ModelConfig, d_ff: int) -> Dict[str, P]:
+    out = dict(w1=P(None, mdl(d_ff)))
+    if cfg.mlp_kind == "swiglu":
+        out["w3"] = P(None, mdl(d_ff))
+    out["w2"] = P(mdl(d_ff), None)
+    return out
+
+
+def _prefixed(prefix: str, specs: Dict[str, P]) -> Dict[str, P]:
+    return {f"{prefix}.{n}": sp for n, sp in specs.items()}
 
 
 class _AttnParams(nn.Module):
     """``wq [d, H*hd]``, ``wk`` / ``wv [d, KV*hd]``, ``wo [H*hd, d]`` (the
-    reference's ``_attn_params``)."""
+    reference's ``_attn_params``), or the rank's slices of them.  ``tp``:
+    ``wq`` / ``wo`` hold whole query heads of this rank, computed on as
+    they are; ``kv_select``: ``wk`` / ``wv`` are gathered whole at use
+    and cut to the one K/V head the rank's query heads read; where the
+    query heads do not split whole, all four are gathered whole at use
+    (:meth:`weights`).  ``gather_leaves`` names the leaves gathered at
+    use."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
         d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
         dt = dtype_of(cfg.param_dtype)
-        self.wq = _param(_init_dense(gen, d, h * hd, dt))
-        self.wk = _param(_init_dense(gen, d, kv * hd, dt))
-        self.wv = _param(_init_dense(gen, d, kv * hd, dt))
-        self.wo = _param(_init_dense(gen, h * hd, d, dt))
+        self.cfg = cfg
+        self.specs = sp = _attn_leaf_specs(cfg)
+        self.wq = _param(_init_dense(gen, d, h * hd, dt), sp["wq"])
+        self.wk = _param(_init_dense(gen, d, kv * hd, dt), sp["wk"])
+        self.wv = _param(_init_dense(gen, d, kv * hd, dt), sp["wv"])
+        self.wo = _param(_init_dense(gen, h * hd, d, dt), sp["wo"])
+        m = sharding.build_size()
+        split = heads_split(cfg, m) if m > 1 else "whole"
+        self.tp = m > 1 and split != "none"
+        self.kv_select = m > 1 and split == "kv"
+        self.gather_leaves = ("wq", "wk", "wv", "wo") if split == "none" \
+            else ("wk", "wv") if self.kv_select else ()
+        # the K/V head the rank's query heads read (kv_select)
+        self.kv_head = sharding.build_rank() * (h // m) // (h // kv) \
+            if self.kv_select else 0
+
+    def weights(self):
+        """``(wq, wk, wv, wo)`` to compute with: the stored ones, and each
+        of ``gather_leaves`` gathered whole over "model" (its gradient
+        then this rank's slice of the whole one, which every rank holds
+        alike); for ``kv_select`` ``wk`` / ``wv`` cut to the columns of
+        the rank's K/V head (their gradient then the sum of the ranks'
+        partial ones)."""
+        out = []
+        hd = self.cfg.hd
+        for n in ("wq", "wk", "wv", "wo"):
+            w = getattr(self, n)
+            if n in self.gather_leaves:
+                w = sharding.gather_from_model(
+                    w, model_dim(self.specs[n]), getattr(w, "leaf_name", n),
+                    partial_grad=self.kv_select)
+                if self.kv_select:
+                    w = w[:, self.kv_head * hd:(self.kv_head + 1) * hd]
+            out.append(w)
+        return out
+
+    def kv_heads(self) -> int:
+        """The K/V heads this rank computes (its cache's)."""
+        if self.kv_select:
+            return 1
+        return self.wk.shape[1] // self.cfg.hd if self.tp else \
+            self.cfg.n_kv_heads
+
+
+def _column(x: torch.Tensor, tp: bool) -> torch.Tensor:
+    """The input of column-parallel products."""
+    return sharding.copy_to_model(x) if tp else x
+
+
+def _row(y: torch.Tensor, tp: bool) -> torch.Tensor:
+    """The output of a row-parallel product, summed over "model"."""
+    return sharding.reduce_from_model(y) if tp else y
 
 
 class _MlpParams(nn.Module):
     """``w1 [d, d_ff]``, ``w2 [d_ff, d]`` and, for SwiGLU, ``w3 [d, d_ff]``
-    (``None`` for the 2-matrix GELU MLP): the reference's ``_mlp_params``."""
+    (``None`` for the 2-matrix GELU MLP): the reference's ``_mlp_params``,
+    or the rank's slices of ``d_ff`` (``tp``)."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, d_ff: int):
         super().__init__()
         d = cfg.d_model
         dt = dtype_of(cfg.param_dtype)
-        self.w1 = _param(_init_dense(gen, d, d_ff, dt))
+        sp = _mlp_leaf_specs(cfg, d_ff)
+        self.w1 = _param(_init_dense(gen, d, d_ff, dt), sp["w1"])
         if cfg.mlp_kind == "swiglu":
-            self.w3 = _param(_init_dense(gen, d, d_ff, dt))
+            self.w3 = _param(_init_dense(gen, d, d_ff, dt), sp["w3"])
         else:
             self.register_parameter("w3", None)
-        self.w2 = _param(_init_dense(gen, d_ff, d, dt))
+        self.w2 = _param(_init_dense(gen, d_ff, d, dt), sp["w2"])
+        self.tp = sharding.build_size() > 1 and \
+            model_dim(sp["w1"]) is not None
+
+
+def _mlp(x: torch.Tensor, p: _MlpParams) -> torch.Tensor:
+    """:func:`layers.mlp` on the rank's hidden units, summed over
+    "model"."""
+    return _row(mlp(_column(x, p.tp), p), p.tp)
 
 
 def _attn_specs(cfg: ModelConfig, prefix: str) -> Dict[str, P]:
-    """Megatron's column/row split of ``_AttnParams`` over "model"."""
-    q, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
-    return {f"{prefix}.wq": P(None, mdl(q)), f"{prefix}.wk": P(None, mdl(kv)),
-            f"{prefix}.wv": P(None, mdl(kv)), f"{prefix}.wo": P(mdl(q), None)}
+    return _prefixed(prefix, _attn_leaf_specs(cfg))
 
 
 def _mlp_specs(cfg: ModelConfig, prefix: str, d_ff: int) -> Dict[str, P]:
-    out = {f"{prefix}.w1": P(None, mdl(d_ff))}
-    if cfg.mlp_kind == "swiglu":
-        out[f"{prefix}.w3"] = P(None, mdl(d_ff))
-    out[f"{prefix}.w2"] = P(mdl(d_ff), None)
-    return out
+    return _prefixed(prefix, _mlp_leaf_specs(cfg, d_ff))
 
 
-def _qkv(cfg: ModelConfig, p: _AttnParams, x: torch.Tensor,
+def _qkv(cfg: ModelConfig, w, x: torch.Tensor,
          positions: Optional[torch.Tensor] = None,
          x_kv: Optional[torch.Tensor] = None):
-    """q from ``x``, k/v from ``x_kv`` (default ``x``); RoPE at
+    """q from ``x``, k/v from ``x_kv`` (default ``x``) by ``w = (wq, wk,
+    wv, ...)``, on as many heads as the weights hold; RoPE at
     ``positions`` when they are given (self-attention only), M-RoPE for
     ``cfg.m_rope``."""
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
     xk = x if x_kv is None else x_kv
-    q = (x @ p.wq).reshape(b, s, h, hd)
-    k = (xk @ p.wk).reshape(b, xk.shape[1], kv, hd)
-    v = (xk @ p.wv).reshape(b, xk.shape[1], kv, hd)
+    q = (x @ w[0]).reshape(b, s, -1, hd)
+    k = (xk @ w[1]).reshape(b, xk.shape[1], -1, hd)
+    v = (xk @ w[2]).reshape(b, xk.shape[1], -1, hd)
     if positions is not None:
         rope = apply_m_rope if cfg.m_rope else apply_rope
         q = rope(q, positions, cfg.rope_theta)
@@ -135,12 +249,13 @@ def _self_attention(cfg: ModelConfig, p: _AttnParams, x: torch.Tensor,
     """``x`` [B,S,d] (normed) -> the attention's output projected by
     ``wo``, with RoPE at positions ``off``..``off+S-1``."""
     b, s, _ = x.shape
+    w = p.weights()
     positions = off + torch.arange(s, device=x.device)[None, :]
-    q, k, v = _qkv(cfg, p, x, positions)
+    q, k, v = _qkv(cfg, w, _column(x, p.tp), positions)
     o = attn_lib.attention(q, k, v, causal=causal, window=window,
                            q_offset=off, chunk=cfg.attention_chunk,
                            force_chunked=force_chunked)
-    return o.reshape(b, s, -1) @ p.wo
+    return _row(o.reshape(b, s, -1) @ w[3], p.tp)
 
 
 def _self_decode(cfg: ModelConfig, p: _AttnParams,
@@ -150,11 +265,12 @@ def _self_decode(cfg: ModelConfig, p: _AttnParams,
     K/V written at ``pos`` first; returns the output projected by
     ``wo``."""
     b = x.shape[0]
+    w = p.weights()
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _qkv(cfg, p, x, positions)
+    q, k, v = _qkv(cfg, w, _column(x, p.tp), positions)
     kc, vc = attn_lib.update_cache(cache["k"], cache["v"], k, v, pos)
     o = attn_lib.decode_attention(q, kc, vc, pos + 1, window=window)
-    return o.reshape(b, 1, -1) @ p.wo
+    return _row(o.reshape(b, 1, -1) @ w[3], p.tp)
 
 
 class AttnBlock(nn.Module):
@@ -203,26 +319,29 @@ class AttnBlock(nn.Module):
                                 off, force_chunked, causal, self.window)
         if enc_out is not None and self.cross:
             b, s, _ = x.shape
-            q, k, v = _qkv(self.cfg, self.xattn, rms_norm(x, self.lnx),
-                           x_kv=enc_out)
+            xa = self.xattn
+            w = xa.weights()
+            q, k, v = _qkv(self.cfg, w, _column(rms_norm(x, self.lnx), xa.tp),
+                           x_kv=_column(enc_out, xa.tp))
             o = attn_lib.attention(q, k, v, causal=False, chunk=0,
                                    force_chunked=force_chunked)
-            x = x + o.reshape(b, s, -1) @ self.xattn.wo
-        return x + mlp(rms_norm(x, self.ln2), self.mlp), _no_aux(x)
+            x = x + _row(o.reshape(b, s, -1) @ w[3], xa.tp)
+        return x + _mlp(rms_norm(x, self.ln2), self.mlp), _no_aux(x)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
-        """Zeroed K/V caches [B, max_len, KV, hd] in the compute dtype (a
-        cross block's ``xk`` / ``xv`` come from ``Model.init_cache``)."""
-        return _kv_cache(self.cfg, batch, max_len, self.ln1.device)
+        """Zeroed K/V caches [B, max_len, KV, hd] in the compute dtype, of
+        this rank's K/V heads (a cross block's ``xk`` / ``xv`` come from
+        ``Model.init_cache``)."""
+        return _kv_cache(self.cfg, self.attn.kv_heads(), batch, max_len,
+                         self.ln1.device)
 
     def cross_kv(self, enc_out: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The cross-attention's K/V of ``enc_out`` [B,S_enc,d], ``xk`` /
-        ``xv`` [B,S_enc,KV,hd], projected by ``xattn`` as ``forward``
-        projects them."""
-        b, s, _ = enc_out.shape
-        shape = (b, s, self.cfg.n_kv_heads, self.cfg.hd)
-        return dict(xk=(enc_out @ self.xattn.wk).reshape(shape),
-                    xv=(enc_out @ self.xattn.wv).reshape(shape))
+        ``xv`` [B,S_enc,KV,hd] (this rank's K/V heads), projected by
+        ``xattn`` as ``forward`` projects them."""
+        _, k, v = _qkv(self.cfg, self.xattn.weights(),
+                       _column(enc_out, self.xattn.tp))
+        return dict(xk=k, xv=v)
 
     def decode(self, cache: Dict[str, torch.Tensor], x_t: torch.Tensor,
                pos: int) -> torch.Tensor:
@@ -235,18 +354,19 @@ class AttnBlock(nn.Module):
                                  self.window)
         if self.cross and "xk" in cache:
             b = x_t.shape[0]
-            cfg = self.cfg
-            q = (rms_norm(x_t, self.lnx) @ self.xattn.wq).reshape(
-                b, 1, cfg.n_heads, cfg.hd)
+            xa = self.xattn
+            w = xa.weights()
+            q = (_column(rms_norm(x_t, self.lnx), xa.tp) @ w[0]).reshape(
+                b, 1, -1, self.cfg.hd)
             o = attn_lib.decode_attention(q, cache["xk"], cache["xv"],
                                           cache["xk"].shape[1])
-            x_t = x_t + o.reshape(b, 1, -1) @ self.xattn.wo
-        return x_t + mlp(rms_norm(x_t, self.ln2), self.mlp)
+            x_t = x_t + _row(o.reshape(b, 1, -1) @ w[3], xa.tp)
+        return x_t + _mlp(rms_norm(x_t, self.ln2), self.mlp)
 
 
-def _kv_cache(cfg: ModelConfig, batch: int, max_len: int, device
-              ) -> Dict[str, torch.Tensor]:
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+def _kv_cache(cfg: ModelConfig, kv_heads: int, batch: int, max_len: int,
+              device) -> Dict[str, torch.Tensor]:
+    shape = (batch, max_len, kv_heads, cfg.hd)
     kw = dict(dtype=dtype_of(cfg.compute_dtype), device=device)
     return dict(k=torch.zeros(shape, **kw), v=torch.zeros(shape, **kw))
 
@@ -254,25 +374,47 @@ def _kv_cache(cfg: ModelConfig, batch: int, max_len: int, device
 # =========================================================== moe block
 
 
+def _moe_leaf_specs(cfg: ModelConfig) -> Dict[str, P]:
+    """The reference's ``build_moe`` specs of the experts: over "model",
+    their hidden width over "data"."""
+    e = mdl(cfg.n_experts)
+    return dict(wg=P(None, e), w1=P(e, None, "data"), w3=P(e, None, "data"),
+                w2=P(e, "data", None))
+
+
 class _MoeParams(nn.Module):
     """The router ``wg [d, E]`` and the experts' ``w1`` / ``w3 [E, d,
     d_ff]``, ``w2 [E, d_ff, d]`` (``moe.moe_params_shape``), each drawn
     in fp32 with std ``1/sqrt(shape[-2])`` (``wg``: ``1/sqrt(d)``) and
     cast, the experts one at a time: a whole ``w1`` of arctic drawn at
-    once would be a 17.8 GB fp32 temporary."""
+    once would be a 17.8 GB fp32 temporary.  ``tp``: the experts are
+    sharded over "model" and only the rank's are kept (every expert is
+    still drawn, in order, so the draws are the world of one's); their
+    "data" dimension is not split here (the train step gathers it)."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
         dt = dtype_of(cfg.param_dtype)
+        specs = _moe_leaf_specs(cfg)
+        self.tp = sharding.build_size() > 1 and \
+            model_dim(specs["w1"]) is not None
         for name, shape in moe_lib.moe_params_shape(
                 cfg.d_model, cfg.n_experts, cfg.moe_d_ff).items():
             if len(shape) == 2:
                 setattr(self, name, _randn(gen, shape,
-                                           1.0 / math.sqrt(shape[0]), dt))
+                                           1.0 / math.sqrt(shape[0]), dt,
+                                           specs[name]))
                 continue
-            w = torch.empty(shape, dtype=dt, device=gen.device)
-            for e in range(shape[0]):
-                w[e] = _draw(gen, shape[1:], 1.0 / math.sqrt(shape[-2]), dt)
+            lo, n = 0, shape[0]
+            if self.tp:
+                n = shape[0] // sharding.build_size()
+                lo = n * sharding.build_rank()
+            w = torch.empty((n,) + tuple(shape[1:]), dtype=dt,
+                            device=gen.device)
+            for e in range(shape[0] if gen.device.type != "meta" else 0):
+                we = _draw(gen, shape[1:], 1.0 / math.sqrt(shape[-2]), dt)
+                if lo <= e < lo + n:
+                    w[e - lo] = we
             setattr(self, name, _param(w))
 
 
@@ -302,10 +444,8 @@ class MoeBlock(nn.Module):
         """The reference's ``build_moe`` specs: experts over "model", their
         hidden width over "data"."""
         cfg = self.cfg
-        e = mdl(cfg.n_experts)
         out = {"ln1": P(None), **_attn_specs(cfg, "attn"), "ln2": P(None),
-               "moe.wg": P(None, e), "moe.w1": P(e, None, "data"),
-               "moe.w3": P(e, None, "data"), "moe.w2": P(e, "data", None)}
+               **_prefixed("moe", _moe_leaf_specs(cfg))}
         if self.dense is not None:
             out.update(_mlp_specs(cfg, "dense", cfg.d_ff))
         return out
@@ -316,11 +456,13 @@ class MoeBlock(nn.Module):
         if grouped:
             y, aux = moe_lib.moe_ffn_grouped(h, w, cfg.top_k,
                                              cfg.capacity_factor,
-                                             cfg.moe_n_groups)
+                                             cfg.moe_n_groups,
+                                             expert_parallel=self.moe.tp)
         else:
-            y, aux = moe_lib.moe_ffn(h, w, cfg.top_k, cfg.capacity_factor)
+            y, aux = moe_lib.moe_ffn(h, w, cfg.top_k, cfg.capacity_factor,
+                                     expert_parallel=self.moe.tp)
         if self.dense is not None:
-            y = y + mlp(h, self.dense)
+            y = y + _mlp(h, self.dense)
         return y, aux
 
     def forward(self, x: torch.Tensor, off: int = 0,
@@ -332,8 +474,10 @@ class MoeBlock(nn.Module):
         return x + y, aux
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
-        """Zeroed K/V caches [B, max_len, KV, hd] in the compute dtype."""
-        return _kv_cache(self.cfg, batch, max_len, self.ln1.device)
+        """Zeroed K/V caches [B, max_len, KV, hd] in the compute dtype, of
+        this rank's K/V heads."""
+        return _kv_cache(self.cfg, self.attn.kv_heads(), batch, max_len,
+                         self.ln1.device)
 
     def decode(self, cache: Dict[str, torch.Tensor], x_t: torch.Tensor,
                pos: int) -> torch.Tensor:
@@ -380,6 +524,8 @@ class Mamba2Block(nn.Module):
     a residual.  ``ln [d]``, ``in_proj [d, 2·d_in + 2·N + nh]``, ``conv_w
     [4, d_in + 2·N]``, ``out_proj [d_in, d]``; ``a_log``, ``d_skip``,
     ``dt_bias [nh]`` fp32."""
+
+    COMPUTES_ON_SHARDS = False      # its leaves are gathered whole
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator):
         super().__init__()
@@ -477,6 +623,8 @@ class MlstmBlock(nn.Module):
     ``down``, with a residual.  ``ln [d]``, ``up [d, 2·dp]``, ``wq`` /
     ``wk`` / ``wv [dp, dp]``, ``wif [dp, 2·H]``, ``down [dp, d]``."""
 
+    COMPUTES_ON_SHARDS = False      # its leaves are gathered whole
+
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator):
         super().__init__()
         self.cfg = cfg
@@ -551,6 +699,8 @@ class SlstmBlock(nn.Module):
     recurrent weights ``r`` (:func:`ssm.slstm_scan`), ``out``, with a
     residual.  ``ln [d]``, ``wx [d, 4·d]``, ``r [4, H, hd, hd]`` (std
     0.3/√hd), ``out [d, d]``."""
+
+    COMPUTES_ON_SHARDS = False      # its leaves are gathered whole
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator):
         super().__init__()

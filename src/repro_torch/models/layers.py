@@ -27,12 +27,21 @@ def dtype_of(name: str) -> torch.dtype:
 # ---------------------------------------------------------------- init
 
 
+def draw_normal(gen: torch.Generator, shape) -> torch.Tensor:
+    """A standard normal fp32 tensor of ``shape`` drawn on ``gen``'s
+    device; on ``meta`` (``gen`` then only names the device) an empty
+    one, drawing nothing."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=gen.device)
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device)
+
+
 def _init_dense(gen: torch.Generator, d_in: int, d_out: int,
                 dtype: torch.dtype) -> torch.Tensor:
     """``normal / sqrt(d_in)`` of shape ``[d_in, d_out]``, drawn in fp32 on
     ``gen``'s device and cast: the weight never passes through the host."""
-    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
-                    device=gen.device)
+    w = draw_normal(gen, (d_in, d_out))
     return w.mul_(1.0 / math.sqrt(d_in)).to(dtype)
 
 

@@ -21,7 +21,8 @@ every ``attn_cross`` block attends to.
 
 Public surface::
 
-    m = Model(cfg, device=None, generator=None)   # weights built on device
+    m = Model(cfg, device=None, generator=None,   # weights built on device
+              tp=None)                        # or (rank, m): its shards
     logits = m(tokens[, enc_embeds][, frontend=])  # prefill forward [B,S,V]
     cache = m.init_cache(batch, max_len[, enc_embeds])  # one per position
     m.encode_into(cache, enc_embeds)               # the encoder, once
@@ -30,6 +31,8 @@ Public surface::
     loss, aux = m.loss_fn(batch)  # {"tokens", "labels"[, "enc_embeds"]
                                   #  [, "frontend"]}
     specs = m.param_specs()       # {parameter name: sharding.P}
+    layout = m.layout()           # {parameter name: Leaf}: what is sharded
+                                  # and what gathered whole
 
 A vision-language model (``cfg.frontend == "vision"``, qwen2-vl) takes
 the frontend's output ``frontend`` [B,nf,d] (the vision tower's stub:
@@ -58,6 +61,21 @@ everything.  A recomputed block calls :func:`attention` again, so
 config of ``configs/archs.py`` has only kinds it has), and
 :class:`Model` refuses such a config.
 
+``Model(cfg, device="meta")`` allocates every weight with ``torch.empty``
+on ``meta`` and draws nothing (the dry-run's model).  ``tp=(rank, m)``
+builds rank ``rank``'s shards of a "model" group of ``m``
+(:mod:`~repro_torch.models.blocks` says which and how they compute): each
+leaf is drawn whole from the same seeded stream as the world of one's and
+sliced, so the ranks' shards concatenate bit for bit to the one-device
+model's leaves.  Such a model runs only inside
+``sharding.parallel(model=...)`` over a group of ``m``.  Its embedding is
+vocab-parallel (a masked local lookup, summed over "model"), its logits
+are the rank's slice of the vocabulary (``forward`` and ``decode_step``
+return ``[..., V/m]``), and ``loss_fn``'s cross entropy is vocab-parallel
+(all-reduces of the max, the sum of exponentials and the target logit;
+``[B, S, V]`` is never built whole).  :meth:`Model.layout` is the one
+rule of which leaves a rank holds sliced and which it gathers whole.
+
 One fault of the reference is not copied: its ``init_cache`` projects
 the cross-attention's K/V with the decoder's *self*-attention weights
 (``attn.wk`` / ``attn.wv``) where its forward uses ``xattn``'s, so its
@@ -66,6 +84,7 @@ decode and forward disagree; here both use ``xattn``'s
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -76,9 +95,10 @@ from torch.utils import checkpoint as ckpt
 from ..device import DeviceLike, resolve_device
 from . import sharding
 from .blocks import (AttnBlock, Mamba2Block, MlstmBlock, MoeBlock,
-                     SlstmBlock, _ones, _param)
+                     SlstmBlock, _AttnParams, _init_dense, _ones, _param)
 from .config import BlockSpec, ModelConfig
-from .layers import _init_dense, dtype_of, rms_norm, softmax_xent
+from .layers import draw_normal, dtype_of, rms_norm, softmax_xent
+from .sharding import P, mdl, model_dim
 
 #: the block class of each ported kind (``shared_attn``: see SHARED_KINDS)
 BLOCKS = {
@@ -135,28 +155,116 @@ def _remat(policy: str):
     return lambda blk, *a: ckpt.checkpoint(blk, *a, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    """How a rank holds one parameter over a ("data", "model") mesh:
+    ``spec`` its partition spec; ``shard_dim`` the dimension it is stored
+    sliced along over "model" (``None``: whole); ``gather`` ``"use"``
+    (stored sliced, gathered whole over "model" where it is used),
+    ``"step"`` (stored whole, its "model" slice gathered by the train
+    step after each update) or ``None``; ``data_dim`` the dimension its
+    spec shards over "data", which the train step gathers too."""
+    spec: P
+    shard_dim: Optional[int]
+    gather: Optional[str]
+    data_dim: Optional[int]
+
+
+class _NoDraws:
+    """The generator of a ``meta`` build: it names the device and draws
+    nothing."""
+
+    def __init__(self):
+        self.device = torch.device("meta")
+
+
+def _embed_spec(cfg: ModelConfig) -> P:
+    return P(mdl(cfg.vocab_size), None) if cfg.embed_shard == "vocab" \
+        else P(None, mdl(cfg.d_model))
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    """The mean cross entropy of fp32 logits ``lg [N, V/m]``, this rank's
+    slice of the vocabulary, against ``labels [N]``: the max, the sum of
+    exponentials and the target's logit all-reduced over "model"."""
+
+    @staticmethod
+    def forward(ctx, lg, labels):
+        axis = sharding.model_axis()
+        vl = lg.shape[-1]
+        mx = sharding.all_reduce(lg.max(dim=-1).values, axis, op="max")
+        ex = torch.exp(lg - mx[:, None])
+        se = sharding.all_reduce(ex.sum(dim=-1), axis)
+        local = labels - axis.rank * vl
+        inside = (local >= 0) & (local < vl)
+        local = torch.where(inside, local, 0)
+        gold = torch.gather(lg, -1, local[:, None])[:, 0] * inside
+        gold = sharding.all_reduce(gold, axis)
+        ctx.save_for_backward(ex, se, local, inside)
+        return (torch.log(se) + mx - gold).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        ex, se, local, inside = ctx.saved_tensors
+        grad = ex / se[:, None]
+        grad[torch.arange(grad.shape[0], device=grad.device), local] -= \
+            inside.to(grad.dtype)
+        return grad * (g / grad.shape[0]), None
+
+
+def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """:func:`layers.softmax_xent` of logits sharded over "model" by
+    vocabulary, ``[..., V/m]``, without gathering them."""
+    lg = logits.float()
+    if softcap > 0.0:
+        lg = torch.tanh(lg / softcap) * softcap
+    return _VocabParallelXent.apply(lg.reshape(-1, lg.shape[-1]),
+                                    labels.reshape(-1).long())
+
+
 class Model(nn.Module):
     """A decoder built on ``device`` (``None`` = the GPU, raising where
-    there is none) from ``generator`` (default: seed 0 on that device),
-    tensor by tensor, in ``cfg.param_dtype``."""
+    there is none; ``"meta"``: allocated, not drawn) from ``generator``
+    (default: seed 0 on that device), tensor by tensor, in
+    ``cfg.param_dtype``; with ``tp=(rank, m)`` only rank ``rank``'s
+    shards of a "model" group of ``m``."""
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 tp: Optional[Tuple[int, int]] = None):
         super().__init__()
         reason = unported(cfg)
         if reason:
             raise NotImplementedError(reason)
         device = resolve_device(device)
-        gen = generator if generator is not None else \
-            torch.Generator(device=device).manual_seed(0)
         self.cfg = cfg
+        self.tp = tuple(tp) if tp is not None else (0, 1)
+        with sharding.build_shards(*self.tp):
+            self._build(cfg, device, generator)
+        for name, p in self.named_parameters():
+            p.leaf_name = name          # named in a gather's count
+
+    def _build(self, cfg: ModelConfig, device: torch.device,
+               generator: Optional[torch.Generator]) -> None:
+        if device.type == "meta":
+            gen = _NoDraws()
+        else:
+            gen = generator if generator is not None else \
+                torch.Generator(device=device).manual_seed(0)
         dt = dtype_of(cfg.param_dtype)
-        embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                            dtype=torch.float32, device=device)
-        self.embed = _param(embed.mul_(0.02).to(dt))
+        espec = _embed_spec(cfg)
+        embed = draw_normal(gen, (cfg.vocab_size, cfg.d_model))
+        self.embed = _param(embed.mul_(0.02).to(dt), espec)
         del embed
+        uspec = P(None, mdl(cfg.vocab_size))
         self.unembed = None if cfg.tie_embeddings else \
-            _param(_init_dense(gen, cfg.d_model, cfg.vocab_size, dt))
+            _param(_init_dense(gen, cfg.d_model, cfg.vocab_size, dt), uspec)
+        m = self.tp[1]
+        # the logits are this rank's slice of the vocabulary
+        self._vocab_local = m > 1 and (
+            model_dim(espec) == 0 if cfg.tie_embeddings else
+            model_dim(uspec) == 1)
         self.final_ln = _ones(cfg, gen)
         shared: Dict[int, nn.Module] = {}
         blocks = []
@@ -175,11 +283,41 @@ class Model(nn.Module):
                                  for _ in range(cfg.n_enc_layers))
         self.enc_ln = _ones(cfg, gen) if cfg.n_enc_layers else None
 
+    def _check_group(self) -> None:
+        m = self.tp[1]
+        if m > 1 and sharding.model_size() != m:
+            raise RuntimeError(
+                f"this model holds rank {self.tp[0]}'s shards of a 'model' "
+                f"group of {m}; run it inside sharding.parallel(model=...) "
+                f"over such a group (declared: {sharding.model_size()})")
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The embeddings of ``tokens``: a lookup; where the table is
+        sharded by vocabulary, a masked local lookup summed over "model";
+        by width, the local columns gathered over "model"."""
+        e = self.embed
+        dim = model_dim(_embed_spec(self.cfg)) if self.tp[1] > 1 else None
+        if dim is None:
+            return e[tokens]
+        if dim == 1:
+            return sharding.gather_from_model(e[tokens], -1)
+        vl = e.shape[0]
+        local = tokens - sharding.model_rank() * vl
+        inside = (local >= 0) & (local < vl)
+        x = e[torch.where(inside, local, 0)] * inside[..., None]
+        return sharding.reduce_from_model(x)
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.final_ln)
-        if self.cfg.tie_embeddings:
-            return x @ self.embed.T.to(x.dtype)
-        return x @ self.unembed
+        if self._vocab_local:
+            x = sharding.copy_to_model(x)
+        if not self.cfg.tie_embeddings:
+            return x @ self.unembed
+        e = self.embed
+        dim = model_dim(_embed_spec(self.cfg)) if self.tp[1] > 1 else None
+        if dim == 1:                    # sharded by width: gathered
+            e = sharding.gather_from_model(e, 1, e.leaf_name)
+        return x @ e.T.to(x.dtype)
 
     def _run(self) -> Callable:
         """``run(block, *args)`` under ``cfg.remat`` while autograd
@@ -209,7 +347,8 @@ class Model(nn.Module):
         ``enc_embeds`` [B,S_enc,d] runs the encoder, whose output the
         cross blocks attend to; ``frontend`` [B,nf,d] (cast to the
         compute dtype) goes ahead of the token embeddings."""
-        x = self.embed[tokens].to(dtype_of(self.cfg.compute_dtype))
+        self._check_group()
+        x = self._embed(tokens).to(dtype_of(self.cfg.compute_dtype))
         if frontend is not None:
             x = torch.cat([frontend.to(x.dtype), x], dim=1)
         run = self._run()
@@ -248,7 +387,8 @@ class Model(nn.Module):
                                             frontend)
         if frontend is not None:
             logits = logits[:, frontend.shape[1]:]
-        loss = softmax_xent(logits, batch["labels"], self.cfg.logit_softcap)
+        xent = vocab_parallel_xent if self._vocab_local else softmax_xent
+        loss = xent(logits, batch["labels"], self.cfg.logit_softcap)
         total = loss + 0.01 * aux
         return total, dict(xent=loss, aux=aux)
 
@@ -258,15 +398,12 @@ class Model(nn.Module):
         ``named_parameters()`` lists it): the reference's
         ``param_specs()`` leaf for leaf, without its stacked layer axes."""
         cfg = self.cfg
-        mdl = sharding.mdl
-        specs = {"embed": sharding.P(mdl(cfg.vocab_size), None)
-                 if cfg.embed_shard == "vocab" else
-                 sharding.P(None, mdl(cfg.d_model))}
+        specs = {"embed": _embed_spec(cfg)}
         if self.unembed is not None:
-            specs["unembed"] = sharding.P(None, mdl(cfg.vocab_size))
-        specs["final_ln"] = sharding.P(None)
+            specs["unembed"] = P(None, mdl(cfg.vocab_size))
+        specs["final_ln"] = P(None)
         if self.enc_ln is not None:
-            specs["enc_ln"] = sharding.P(None)
+            specs["enc_ln"] = P(None)
         seen = set()
         for prefix, blocks in (("blocks", self.blocks), ("enc", self.enc)):
             for n, blk in enumerate(blocks):
@@ -276,6 +413,47 @@ class Model(nn.Module):
                 for name, spec in blk.param_specs().items():
                     specs[f"{prefix}.{n}.{name}"] = spec
         return {n: specs[n] for n, _ in self.named_parameters()}
+
+    def layout(self) -> Dict[str, Leaf]:
+        """The one rule of what a rank of this model's "model" group holds
+        and gathers, by parameter name (:class:`Leaf`).  A leaf whose spec
+        names "model" is stored sliced and computed on as a shard, except:
+        the attention leaves of a block whose heads do not split whole
+        over the group (``gather="use"``: ``wk`` / ``wv`` where each
+        rank's query heads read one K/V head, all four where the query
+        heads do not split; ``blocks.heads_split``), and the leaves of the recurrent
+        blocks, which are stored and computed whole (``gather="step"``).
+        Every leaf whose spec names "data" (the experts' hidden width) is
+        gathered over "data" by the train step."""
+        m = self.tp[1]
+        owner = {}
+        for mname, mod in self.named_modules():
+            for pname, _ in mod.named_parameters(recurse=False):
+                owner[f"{mname}.{pname}" if mname else pname] = mod
+        out = {}
+        for n, spec in self.param_specs().items():
+            dim, mod, gather = model_dim(spec), owner[n], None
+            if dim is None or m == 1:
+                dim = None
+            elif not getattr(mod, "COMPUTES_ON_SHARDS", True):
+                dim, gather = None, "step"
+            elif isinstance(mod, _AttnParams) and \
+                    n.rsplit(".", 1)[1] in mod.gather_leaves:
+                gather = "use"
+            out[n] = Leaf(spec, dim, gather, sharding.data_dim(spec))
+        return out
+
+    def whole_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """Every parameter's shape in the world of one, by name: the
+        shard's with its "model" dimension (``layout()``) times m."""
+        layout = self.layout()
+        out = {}
+        for n, p in self.named_parameters():
+            shape = list(p.shape)
+            if layout[n].shard_dim is not None:
+                shape[layout[n].shard_dim] *= self.tp[1]
+            out[n] = tuple(shape)
+        return out
 
     def init_cache(self, batch: int, max_len: int,
                    enc_embeds: Optional[torch.Tensor] = None
@@ -306,7 +484,8 @@ class Model(nn.Module):
                     tokens: torch.Tensor, pos: int) -> torch.Tensor:
         """tokens: [B,1]; ``pos``: the current cache length.  Advances
         every block's cache by this token and returns logits [B,1,V]."""
-        x = self.embed[tokens].to(dtype_of(self.cfg.compute_dtype))
+        self._check_group()
+        x = self._embed(tokens).to(dtype_of(self.cfg.compute_dtype))
         for blk, c in zip(self.blocks, cache):
             x = blk.decode(c, x, pos)
         return self._logits(x)

@@ -1,5 +1,6 @@
 """Sharding context for model code, the counterpart of the JAX package's
-``models/sharding.py``, and the port's partition specs.
+``models/sharding.py``, the port's partition specs, and the collectives of
+its tensor- and data-parallel compute.
 
 A :class:`P` is the counterpart of ``jax.sharding.PartitionSpec``: one
 entry per tensor dimension, each ``None`` (replicated), a mesh dimension's
@@ -18,12 +19,44 @@ returned as it is, so the same model code runs everywhere.
 ``mdl(width)`` is the reference's ``blocks._mdl``: a width is sharded over
 ``"model"`` when it divides by the production mesh's tensor-parallel
 degree ``TP``, and replicated otherwise.
+
+**Where the reference's GSPMD shards compute, the port shards it by hand**
+(Megatron tensor parallelism).  A model built with ``Model(cfg,
+tp=(rank, m))`` holds only its shard of each leaf whose spec names
+"model" (:func:`keep_shard`, under :func:`build_shards`), and computes on
+it: column-parallel products on local heads or hidden units, each
+row-parallel product followed by one :func:`reduce_from_model`, experts
+parallel over "model", the vocabulary sharded at both ends.
+:func:`parallel` declares, for the duration of a step, the "model" and
+"data" :class:`Axis` (a process group, its size and this rank's index in
+it) that the model's collectives run over:
+
+* :func:`copy_to_model`: identity forward, all-reduce backward (the input
+  of a column-parallel product);
+* :func:`reduce_from_model`: all-reduce forward, identity backward (the
+  output of a row-parallel product);
+* :func:`gather_from_model`: all-gather forward, the rank's own slice
+  backward (the router's logits, and the few leaves gathered at use),
+  or a reduce-scatter where each rank's gradient is partial;
+* :func:`sum_over_data`: all-reduce forward and backward (the
+  mixture-of-experts' batch statistics, whose gradient every data rank's
+  loss carries);
+* :func:`all_reduce`, :func:`all_gather`, :func:`reduce_scatter`: the
+  plain collectives of the train step.
+
+With no axis declared (or an axis of one rank) each is the identity, so
+the same model code runs on one device, on the CPU and in the tests.
+Every one of them adds the bytes of its operand to :data:`stats`, by
+kind, and a leaf gathered whole over an axis is counted there by name.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
 
 TP = 16     # tensor-parallel degree of the production mesh ("model" axis)
 
@@ -133,3 +166,291 @@ def constrain(x, spec: P):
 
 def constrain_batch(x, *rest):
     return constrain(x, bspec(*rest))
+
+
+# ------------------------------------------------------ parallel compute
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One mesh dimension a rank computes over: its process group, its
+    size, the rank's index along it and its name (under which
+    :data:`stats` counts its bytes)."""
+    group: Any
+    size: int
+    rank: int
+    name: str = ""
+
+
+def mesh_axis(mesh, name: str) -> Axis:
+    """The :class:`Axis` of ``mesh``'s dimension ``name`` on this rank."""
+    dim = mesh.mesh_dim_names.index(name)
+    return Axis(mesh.get_group(name), mesh.shape[dim],
+                mesh.get_local_rank(name), name)
+
+
+def rows_axis(mesh) -> Axis:
+    """The :class:`Axis` the batch's rows go over on ``mesh``: "data", or
+    ("pod", "data") flattened pod-major where the mesh has "pod"."""
+    if "pod" not in mesh.mesh_dim_names:
+        return mesh_axis(mesh, "data")
+    flat = mesh["pod", "data"]._flatten("pod_data")
+    return Axis(flat.get_group(), flat.size(), flat.get_local_rank(),
+                "pod_data")
+
+
+_MODEL: Optional[Axis] = None
+_DATA: Optional[Axis] = None
+_BUILD: Optional[Tuple[int, int]] = None
+
+
+@contextlib.contextmanager
+def parallel(model: Optional[Axis] = None, data: Optional[Axis] = None):
+    """Declare the "model" and "data" axes the model's collectives run
+    over, for the block."""
+    global _MODEL, _DATA
+    prev = _MODEL, _DATA
+    _MODEL, _DATA = model, data
+    try:
+        yield
+    finally:
+        _MODEL, _DATA = prev
+
+
+def model_axis() -> Optional[Axis]:
+    return _MODEL
+
+
+def data_axis() -> Optional[Axis]:
+    """The declared "data" axis, ``None`` without one or at one rank."""
+    return _DATA if _DATA is not None and _DATA.size > 1 else None
+
+
+def model_size() -> int:
+    return 1 if _MODEL is None else _MODEL.size
+
+
+def model_rank() -> int:
+    return 0 if _MODEL is None else _MODEL.rank
+
+
+# ------------------------------------------------------ building on shards
+
+
+@contextlib.contextmanager
+def build_shards(rank: int, size: int):
+    """Within the block, :func:`keep_shard` keeps rank ``rank``'s slice
+    of ``size`` along each leaf's "model" dimension."""
+    global _BUILD
+    if not 0 <= rank < size:
+        raise ValueError(f"tp rank {rank} is outside a group of {size}")
+    prev, _BUILD = _BUILD, (rank, size)
+    try:
+        yield
+    finally:
+        _BUILD = prev
+
+
+def build_size() -> int:
+    """The "model" size the model being built is sharded for (1: whole)."""
+    return 1 if _BUILD is None else _BUILD[1]
+
+
+def build_rank() -> int:
+    """The rank whose shards the model being built keeps."""
+    return 0 if _BUILD is None else _BUILD[0]
+
+
+def model_dim(spec: Optional[P]) -> Optional[int]:
+    """The tensor dimension ``spec`` shards over "model", or ``None``."""
+    for i, part in enumerate(spec or ()):
+        if "model" in _names(part):
+            return i
+    return None
+
+
+def data_dim(spec: Optional[P]) -> Optional[int]:
+    """The tensor dimension ``spec`` shards over "data", or ``None``."""
+    for i, part in enumerate(spec or ()):
+        if "data" in _names(part):
+            return i
+    return None
+
+
+def shard_of(t: torch.Tensor, dim: int, rank: int, size: int
+             ) -> torch.Tensor:
+    """Rank ``rank``'s contiguous slice of ``size`` along ``dim`` (which
+    must divide evenly), as a view."""
+    if t.shape[dim] % size:
+        raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
+                         f"split over {size} ranks")
+    n = t.shape[dim] // size
+    return t.narrow(dim, rank * n, n)
+
+
+def keep_shard(t: torch.Tensor, spec: Optional[P]) -> torch.Tensor:
+    """``t`` itself, or, under :func:`build_shards` and where ``spec``
+    names "model", a copy of the rank's slice (the whole ``t`` is then
+    freed by its caller)."""
+    dim = model_dim(spec)
+    if _BUILD is None or dim is None or _BUILD[1] == 1:
+        return t
+    return shard_of(t, dim, *_BUILD).clone()
+
+
+# ------------------------------------------------------ collectives
+
+
+class CollectiveStats:
+    """Bytes of the collectives' operands and their calls, by kind, and
+    the leaves gathered whole, by axis and name."""
+
+    KINDS = ("all-reduce", "all-gather", "reduce-scatter")
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.bytes: Dict[str, int] = {k: 0 for k in self.KINDS}
+        self.calls: Dict[str, int] = {k: 0 for k in self.KINDS}
+        self.by_axis: Dict[str, int] = collections.Counter()
+        self.leaf_gathers: Dict[str, collections.Counter] = \
+            collections.defaultdict(collections.Counter)
+
+    def add(self, kind: str, t: torch.Tensor, axis: "Axis") -> None:
+        n = t.numel() * t.element_size()
+        self.bytes[kind] += n
+        self.calls[kind] += 1
+        self.by_axis[axis.name] += n
+
+    def as_dict(self) -> Dict[str, Any]:
+        return dict(bytes=dict(self.bytes), calls=dict(self.calls),
+                    by_axis=dict(self.by_axis),
+                    leaf_gathers={a: dict(c) for a, c in
+                                  self.leaf_gathers.items()})
+
+
+stats = CollectiveStats()
+
+
+def _live(axis: Optional[Axis]) -> bool:
+    return axis is not None and axis.size > 1
+
+
+def all_reduce(x: torch.Tensor, axis: Optional[Axis], op: str = "sum"
+               ) -> torch.Tensor:
+    """The sum (``op="max"``: the maximum) of ``x`` over ``axis``, in
+    place where it is contiguous (a new tensor otherwise); ``x`` itself
+    with no live axis."""
+    if not _live(axis):
+        return x
+    import torch.distributed as dist
+    x = x.contiguous()
+    stats.add("all-reduce", x, axis)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else
+                    dist.ReduceOp.SUM, group=axis.group)
+    return x
+
+
+def all_gather(x: torch.Tensor, axis: Optional[Axis], dim: int = 0,
+               leaf: Optional[str] = None) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis``, concatenated along ``dim`` in
+    rank order; ``leaf`` names a weight gathered whole (counted in
+    :data:`stats` under the axis's name)."""
+    if not _live(axis):
+        return x
+    import torch.distributed as dist
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((axis.size * src.shape[0],) + tuple(src.shape[1:]))
+    stats.add("all-gather", src, axis)
+    if leaf is not None:
+        stats.leaf_gathers[axis.name][leaf] += 1
+    dist.all_gather_into_tensor(out, src, group=axis.group)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter(x: torch.Tensor, axis: Optional[Axis], dim: int = 0
+                   ) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum of ``x`` over
+    ``axis``."""
+    if not _live(axis):
+        return x
+    import torch.distributed as dist
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // axis.size,) +
+                        tuple(src.shape[1:]))
+    stats.add("reduce-scatter", src, axis)
+    dist.reduce_scatter_tensor(out, src, group=axis.group)
+    return out.movedim(0, dim)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(), _MODEL)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return all_reduce(x.clone(), _MODEL)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, leaf, partial_grad):
+        ctx.dim, ctx.partial_grad = dim, partial_grad
+        return all_gather(x, _MODEL, dim, leaf)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial_grad:
+            g = reduce_scatter(g, _MODEL, ctx.dim)
+        else:
+            g = shard_of(g, ctx.dim, _MODEL.rank, _MODEL.size)
+        return g, None, None, None
+
+
+class _SumOverData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return all_reduce(x.clone(), _DATA)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(), _DATA)
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward, all-reduce over "model" backward."""
+    return _CopyToModel.apply(x) if _live(_MODEL) else x
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """All-reduce over "model" forward, identity backward."""
+    return _ReduceFromModel.apply(x) if _live(_MODEL) else x
+
+
+def gather_from_model(x: torch.Tensor, dim: int,
+                      leaf: Optional[str] = None,
+                      partial_grad: bool = False) -> torch.Tensor:
+    """All-gather over "model" along ``dim`` forward; backward, this
+    rank's slice of the gradient, which every rank of the group holds
+    whole, or with ``partial_grad`` of the sum of the ranks' partial
+    gradients (a reduce-scatter); ``leaf`` names a weight gathered at
+    use."""
+    return _GatherFromModel.apply(x, dim, leaf, partial_grad) \
+        if _live(_MODEL) else x
+
+
+def sum_over_data(x: torch.Tensor) -> torch.Tensor:
+    """All-reduce over "data" forward and backward."""
+    return _SumOverData.apply(x) if _live(_DATA) else x
