@@ -13,8 +13,9 @@ analysis and the graph hash of every evaluator family — which
 ``benchmarks.compare_sweep_torch`` gates against the committed
 ``benchmarks/BENCH_sweep_torch.baseline.json``.  The reference's record
 also has ``compiles`` and ``compile_ahead_*``; they have no eager
-meaning and are left out.  ``roofline`` (the XLA dry-run table) is not
-ported: asking for it says so.
+meaning and are left out.  ``roofline`` tabulates the production-mesh
+dry-run's records (``benchmarks/roofline_torch.py`` on
+``benchmarks/dryrun_torch.jsonl``) and prints its summary line.
 """
 from __future__ import annotations
 
@@ -222,7 +223,8 @@ def main(argv=None) -> None:
     budget = args.budget or (300 if args.quick else
                              20000 if args.full else 10000)
     only = set(args.only.split(",")) if args.only else None
-    device = resolve_device(args.device)
+    # the roofline table reads records and needs no device
+    device = None if only == {"roofline"} else resolve_device(args.device)
 
     from benchmarks import es_ops_torch as es_ops
     from benchmarks import paper_tables_torch as paper_tables
@@ -368,9 +370,14 @@ def main(argv=None) -> None:
               f"searched={len(rows)}_arch_gemms")
 
     if want("roofline"):
-        print("run_torch: roofline is not ported (the XLA dry-run tools "
-              "wait for their own slice of the port)", file=sys.stderr)
-        print("roofline,0.0,not_ported")
+        t0 = time.time()
+        from benchmarks import roofline_torch
+        recs = roofline_torch.main()
+        ok = sum(r.get("status") == "ok" for r in recs)
+        sk = sum(r.get("status") == "skipped" for r in recs)
+        print(f"roofline,{time.time()-t0:.1f},records={len(recs)};ok={ok};"
+              f"skipped={sk};wrote=roofline_torch_16_16.md,"
+              f"roofline_torch_2_16_16.md")
 
 
 if __name__ == "__main__":

@@ -6,7 +6,9 @@
 Needs one CUDA device and ``nvcc``; it exits non-zero, printing no result,
 where there is no CUDA device or the port's package is missing.  It
 
-1. builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
+   ahead of the timed phases (``benchmarks/prewarm_cache_torch.py``: the
+   ``build`` line names the directory, the objects and the seconds);
 2. drives the port's main path with every kernel-launch count set to 0 —
    the paper's search (``search.run("sparsemap", ...)``) on Table III
    workloads at their published sizes with the row cost evaluator on the
@@ -100,10 +102,15 @@ where there is no CUDA device or the port's package is missing.  It
     ``qwen2-vl-7b`` in fp32 over the mesh against the un-meshed run; then,
     with one card, two gloo ranks sharing it: a (1, 2) tensor-parallel
     mesh (qwen2-vl, 2 layers) and a (2, 1) data-parallel MoE mesh (arctic,
-    1 layer of 8 experts), fp32, each against the world of one; with four
-    or more cards, one NCCL rank a card: the 8-layer qwen2-vl on (1, 4)
-    and (2, 2) against one card, then ``mistral-nemo-12b`` at its full 40
-    layers on (1, 4) (peak memory, ms a step, collective bytes);
+    1 layer of 8 experts, each rank holding every expert at half its
+    hidden width: ``w1`` ``[8, 7168, 2432]``), fp32, each against the
+    world of one; with four or more cards, one NCCL rank a card: the
+    8-layer qwen2-vl on (1, 4) and (2, 2) against one card, the MoE on
+    (2, 2) (16 experts, 8 a rank at half their width) against one card,
+    arctic at its full width and 128 experts, 2 layers, bf16, on (2, 2)
+    (64 experts a rank at half their width), then ``mistral-nemo-12b`` at
+    its full 40 layers on (1, 4) (peak memory, ms a step, collective
+    bytes);
 13. holds the GPU evaluator against the CPU one on 262,144 genomes per
     workload and measures its rows per second;
 14. holds each kernel against its plain PyTorch version on the card — the
@@ -1536,9 +1543,16 @@ TRAIN_GRAD_RTOL = 1e-4
 TRAIN_LR_SMOKE = 3e-3
 TRAIN_CHECK_STEPS = 8
 TRAIN_MIN_DROP = 0.2
-# the optimizer's least traffic a step: read bf16 weight and gradient and
-# fp32 mu, nu; write bf16 weight and fp32 mu, nu
-OPT_BYTES_PER_PARAM = 2 + 2 + 8 + 2 + 8
+def opt_bytes_per_param(moment_dtype="float32"):
+    """The optimizer's least traffic a step, per parameter: read the bf16
+    weight and gradient and both moments (fp32, or bf16 where the model
+    keeps them so), write the weight and both moments: 22 bytes, 14 with
+    bf16 moments."""
+    m = 2 if moment_dtype == "bfloat16" else 4
+    return 2 + 2 + 2 * m + 2 + 2 * m
+
+
+OPT_BYTES_PER_PARAM = opt_bytes_per_param()
 
 
 @contextlib.contextmanager
@@ -2475,8 +2489,10 @@ def _moe_arch(device, arch):
                           tcfg.capacity_factor, tcfg.n_experts)
              ] * tcfg.n_layers
     tflops = 3.0 * tr["batch"] * moe_forward_flops(tcfg, tr["seq"], tcaps)
+    moments = opt.moment_dtype_for(tcfg)
+    opt_bytes = opt_bytes_per_param(moments)
     t_bound_s = tflops / PEAK_FLOPS["bfloat16"] + \
-        OPT_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S
+        opt_bytes * n_params / HBM_BYTES_PER_S
     train_peak = torch.cuda.max_memory_allocated(device)
     batch = {k: torch.from_numpy(v[:1, :MOE_GRAD_S]).to(device)
              for k, v in res["data"].batch_at(tr["steps"]).items()}
@@ -2521,8 +2537,9 @@ def _moe_arch(device, arch):
         step_s=res["step_s"], ms_per_step=mean_s * 1e3,
         tokens_per_s=tr["batch"] * tr["seq"] / mean_s, model_flops=tflops,
         bound_ms=t_bound_s * 1e3, share_of_bound=t_bound_s / mean_s,
+        moments=moments,
         bound_convention="3 x forward FLOPs (as computed) at 989 TFLOP/s, "
-        "plus the optimizer's 22 bytes a parameter at 3.35 TB/s",
+        f"plus the optimizer's {opt_bytes} bytes a parameter at 3.35 TB/s",
         max_memory_allocated_bytes=train_peak, launches=train_launches,
         check_loss=dict(total=total, xent=xent, aux=aux),
         check_grads=dict(
@@ -3274,6 +3291,15 @@ DIST_SHARED = dict(tp=dict(arch=VLM_ARCH, mesh=(1, 2), layers=2),
                    moe=dict(arch="arctic-480b", mesh=(2, 1), layers=1,
                             experts=8))
 DIST_SHARED_STEP = dict(batch=2, seq=512, steps=2)
+# every card visible: the MoE on (2, 2) in fp32 against one card, 16
+# experts (so the specs shard them over "model") of arctic's width, each
+# rank 8 of them at half their hidden width; then arctic at its full
+# width and its 128 experts, 2 layers, bf16 (bf16 moments, as
+# ``optimizer.moment_dtype_for`` takes them for arctic), on (2, 2): 64
+# experts a rank at d_ff / 2, 6.69 GB of expert weights a layer
+DIST_MOE_MESH = dict(arch="arctic-480b", mesh=(2, 2), layers=1, experts=16)
+DIST_MOE_BIG = dict(arch="arctic-480b", mesh=(2, 2), layers=2, seq=1024,
+                    batch=2, steps=3, warmup=1)
 
 
 def _fp32(cfg, **kw):
@@ -3309,7 +3335,26 @@ def _parity_checked(outs, what):
                               "first_step_unexplained_over_max",
                               "first_step_unexplained_leaf",
                               "first_step_leaf_rel_norm", "param_bytes", "spec_param_bytes",
-                              "leaf_gathers")}
+                              "leaf_gathers", "coll_bytes",
+                              "coll_bytes_by_axis", "moe_width_forms")}
+
+
+def _expert_shapes_checked(outs, cfg, mesh, what):
+    """Every rank holds ``[E/m, d, d_ff/D]`` of ``w1`` / ``w3`` and
+    ``[E/m, d_ff/D, d]`` of ``w2`` (E whole where the specs do not shard
+    it): the distinct shapes, by leaf kind."""
+    from repro_torch.models import sharding
+    e = cfg.n_experts // (mesh[1] if sharding.mdl(cfg.n_experts) else 1)
+    f = cfg.moe_d_ff // mesh[0]
+    want = dict(w1=[e, cfg.d_model, f], w3=[e, cfg.d_model, f],
+                w2=[e, f, cfg.d_model])
+    for o in outs:
+        check(bool(o["expert_shapes"]) and
+              all(shape == want[n[-2:]]
+                  for n, shape in o["expert_shapes"].items()),
+              f"dist: {what}: expert leaves {o['expert_shapes']}, want "
+              f"{want}")
+    return want
 
 
 def dist_shared_card(device_type="cuda"):
@@ -3332,6 +3377,9 @@ def dist_shared_card(device_type="cuda"):
         out[name] = dict(arch=run["arch"], layers=run["layers"], **extra,
                          **_parity_checked(outs, f"{name} {run['mesh']}"),
                          seconds=time.perf_counter() - t0)
+        if "experts" in run:
+            out[name]["expert_shapes"] = _expert_shapes_checked(
+                outs, cfg, run["mesh"], f"{name} {run['mesh']}")
     return out
 
 
@@ -3370,6 +3418,24 @@ def dist_every_card(device, device_type="cuda"):
                              zip(reps[0]["losses"], single)),
             ms_per_step=[r["step_s"][-1] * 1e3 for r in reps],
             peak_bytes=[r["peak_bytes"] for r in reps]))
+    run = DIST_MOE_MESH
+    st = DIST_SHARED_STEP
+    mcfg = _fp32(get_config(run["arch"]), n_super=run["layers"],
+                 n_experts=run["experts"])
+    t0 = time.perf_counter()
+    outs = spawn(selftest.sharded_step_parity, 4,
+                 (mcfg, run["mesh"], st["batch"], st["seq"], st["steps"]),
+                 device_type=device_type, timeout=900.0)
+    out["moe_parity"] = dict(
+        arch=run["arch"], layers=run["layers"], experts=run["experts"],
+        **_parity_checked(outs, f"moe {run['mesh']}"),
+        expert_shapes=_expert_shapes_checked(outs, mcfg, run["mesh"],
+                                             f"moe {run['mesh']}"),
+        seconds=time.perf_counter() - t0)
+    if device_type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    out["moe_big"] = _moe_big(device_type)
     big = DIST_BIG
     kw = dict(steps=big["steps"], batch=big["batch"], seq=big["seq"],
               log_every=1)
@@ -3399,6 +3465,57 @@ def dist_every_card(device, device_type="cuda"):
         leaf_gathers=reps[0]["leaf_gathers"],
         seconds=time.perf_counter() - t0)
     return out
+
+
+def _moe_big(device_type):
+    """``DIST_MOE_BIG``: arctic at its full width on (2, 2), bf16, a few
+    steps of ``run_train``: the losses (finite, every rank's alike), the
+    ms a step after the warm-up, each rank's peak memory, its expert
+    leaves' shapes, the bytes held beside the specs' share and the
+    collectives' bytes a step by kind and axis."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import selftest
+    from repro_torch.distributed.launch import spawn
+    from repro_torch.models import sharding
+    from repro_torch.optim.optimizer import moment_dtype_for
+    run = DIST_MOE_BIG
+    cfg = dataclasses.replace(get_config(run["arch"]), n_super=run["layers"])
+    kw = dict(steps=run["steps"], batch=run["batch"], seq=run["seq"],
+              log_every=1)
+    t0 = time.perf_counter()
+    reps = spawn(selftest.mesh_train_report, 4, (cfg, run["mesh"], kw),
+                 device_type=device_type, timeout=900.0)
+    for r in reps:
+        check(all(math.isfinite(x) for x in r["losses"]) and
+              r["losses"] == reps[0]["losses"],
+              f"dist: {run['arch']} on {run['mesh']}: losses {r['losses']}")
+        check(r["param_bytes"] == r["param_bytes_by_specs"],
+              f"dist: {run['arch']} on {run['mesh']}: {r['param_bytes']} "
+              f"parameter bytes, the specs say {r['param_bytes_by_specs']}")
+    w = run["warmup"]
+    e = cfg.n_experts // (run["mesh"][1] if sharding.mdl(cfg.n_experts)
+                          else 1)
+    f = cfg.moe_d_ff // run["mesh"][0]
+    return dict(
+        arch=run["arch"], layers=run["layers"], mesh=list(run["mesh"]),
+        seq=run["seq"], batch=run["batch"], dtype="bfloat16",
+        moments=moment_dtype_for(cfg), remat=cfg.remat,
+        expert_w1=[e, cfg.d_model, f],
+        expert_bytes_per_layer=3 * e * cfg.d_model * f * 2,
+        losses=reps[0]["losses"],
+        ms_per_step=[sum(r["step_s"][w:]) / len(r["step_s"][w:]) * 1e3
+                     for r in reps],
+        peak_bytes=[r["peak_bytes"] for r in reps],
+        param_bytes=[r["param_bytes"] for r in reps],
+        param_bytes_by_specs=reps[0]["param_bytes_by_specs"],
+        moment_bytes=[r["moment_bytes"] for r in reps],
+        moment_bytes_by_specs=reps[0]["moment_bytes_by_specs"],
+        coll_bytes_per_step=reps[0]["coll_bytes_per_step"],
+        coll_bytes_by_axis_per_step=reps[0]["coll_bytes_by_axis_per_step"],
+        leaf_gathers=reps[0]["leaf_gathers"],
+        seconds=time.perf_counter() - t0)
 
 
 def dist_phase(device):
@@ -4157,11 +4274,18 @@ def main(argv=None) -> int:
     print(card, flush=True)
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
+    # every kernel built ahead of the timed phases, one nvcc a source
+    from benchmarks.prewarm_cache_torch import prewarm
     t0 = time.perf_counter()
-    build_dir = _build.build_all()
-    check(all((build_dir / f"lib{s.stem}.so").is_file()
+    built = prewarm()
+    build_dir = _build.build_dir()
+    check(built["dir"] == str(build_dir) and
+          built["objects"] == len(_build.sources()) and
+          all((build_dir / f"lib{s.stem}.so").is_file()
               for s in _build.sources()), "a kernel library is missing")
     report["build"] = dict(phase="build", seconds=time.perf_counter() - t0,
+                           dir=built["dir"], objects=built["objects"],
+                           build_s=built["seconds"], cached=built["cached"],
                            sources=[s.name for s in _build.sources()])
     emit(report["build"])
 

@@ -131,20 +131,23 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
     parameters' difference against the one AdamW's first update makes of
     their gradients' difference (:func:`_first_step`), the worst over its
     leaf's largest element; the sharded model's parameter bytes
-    beside the specs' share over "model" (every leaf's whole bytes over
-    the "model" size where its spec names "model"), the leaves whose
-    bytes are not that share, and the leaves the sharded steps gathered
-    whole, by axis (``sharding.stats``)."""
+    beside the specs' share (every leaf's whole bytes over the "model"
+    size where its spec names "model" and over the "data" size where it
+    names "data"), the leaves whose bytes are not that share, the shapes
+    of the experts' leaves the rank holds, the leaves the sharded steps
+    gathered whole, by axis, and the collectives' operand bytes of the
+    sharded steps by kind and axis (``sharding.stats``)."""
     from ..launch.mesh import make_test_mesh
     from ..launch.steps import (build_sharded_train_step, build_train_step,
-                                loss_and_grads)
-    from ..models import sharding
+                                loss_and_grads, mesh_places)
+    from ..models import moe, sharding
     from ..models.model import Model
     from ..optim import optimizer as opt
     dev = _device()
     mesh = make_test_mesh(shape, ("data", "model"))
     ax = sharding.mesh_axis(mesh, "model")
     dax = sharding.mesh_axis(mesh, "data")
+    wax = sharding.width_axis_of(mesh)
     rng = np.random.default_rng(2)
     data = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                              (batch, seq))).to(dev)
@@ -158,7 +161,7 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
     runs = []
     for sharded in (False, True):
         model = Model(cfg, device=dev,
-                      tp=(ax.rank, ax.size) if sharded else None,
+                      **(mesh_places(mesh) if sharded else {}),
                       generator=torch.Generator(device=dev).manual_seed(0))
         model.requires_grad_(True)
         params = dict(model.named_parameters())
@@ -166,45 +169,59 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
         if sharded:
             rows = {k: sharding.shard_of(v, 0, dax.rank, dax.size)
                     for k, v in data.items()}
-            with sharding.parallel(model=ax, data=dax):
+            with sharding.parallel(model=ax, data=dax, width=wax):
                 _, grads = loss_and_grads(model, rows)
-            grads = {n: sharding.all_reduce(g.float(), dax) / dax.size
+            # a slice of the experts' width has seen every row already
+            grads = {n: (g.float() if layout[n].width_dim is not None else
+                         sharding.all_reduce(g.float(), dax)) / dax.size
                      for n, g in grads.items()}
         else:
             _, grads = loss_and_grads(model, data)
-        grads = _whole(grads, layout, ax if sharded else None)
+        grads = _whole(grads, layout, ax if sharded else None, dax)
         state = opt.init(params, ocfg)
         step = build_sharded_train_step(model, ocfg, state, mesh) \
             if sharded else build_train_step(model, ocfg, state)
         sharding.stats.reset()
+        moe.width_forms.clear()
         out = step(data)
         losses = [float(out["loss"])]
-        # the first update's scalars, as the step took them from its norm
+        step_one = sharding.stats.as_dict()     # the steps' own, not the
+        # first update's scalars, as the step took them from its norm
         k = opt.step_scalars(opt.OptState(
             torch.zeros((), dtype=torch.int32), {}, {}),
             out["grad_norm"].float().cpu(), ocfg)
         if sharded:
             first = _first_step(first, params, layout, ax, runs[0][1],
-                                grads, (k_one, k), ocfg)
+                                grads, (k_one, k), ocfg, dax=dax)
         else:
             first, k_one = _whole({n: p.detach() for n, p in
                                    params.items()}, layout, None), k
+        sharding.stats.reset()                  # comparison's gathers
         losses += [float(step(data)["loss"]) for _ in range(steps - 1)]
-        gathers = sharding.stats.as_dict()["leaf_gathers"]
+        coll = _added(step_one, sharding.stats.as_dict())
         final = _whole({n: p.detach() for n, p in params.items()}, layout,
-                       ax if sharded else None)
+                       ax if sharded else None, dax)
         if sharded:
             held, share, off = 0, 0.0, []
             for n, p in params.items():
                 whole = final[n].numel() * p.element_size()
-                want = whole / (ax.size if sharding.model_dim(
-                    layout[n].spec) is not None else 1)
+                spec = layout[n].spec
+                want = whole / (ax.size if sharding.model_dim(spec)
+                                is not None else 1) / (
+                    dax.size if sharding.data_dim(spec) is not None else 1)
                 have = p.numel() * p.element_size()
                 held, share = held + have, share + want
                 if have != want:
                     off.append(n)
             report = dict(param_bytes=held, spec_param_bytes=share,
-                          not_the_share=off, leaf_gathers=gathers,
+                          not_the_share=off,
+                          leaf_gathers=coll["leaf_gathers"],
+                          expert_shapes={n: list(p.shape) for n, p in
+                                         params.items() if ".moe.w" in n
+                                         and not n.endswith("wg")},
+                          coll_bytes=coll["bytes"],
+                          moe_width_forms=dict(moe.width_forms),
+                          coll_bytes_by_axis=coll["by_axis"],
                           gathered_at_step=[n for n in params if
                                             layout[n].gather == "step"])
         runs.append((losses, grads, final))
@@ -221,26 +238,42 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
                 worst_leaf_rel_norm=worst_norm, **first, **report)
 
 
-def _whole(leaves: Dict[str, torch.Tensor], layout, ax) -> Dict:
+def _added(a: Dict, b: Dict) -> Dict:
+    """Two ``sharding.stats.as_dict()`` records added key by key."""
+    if not isinstance(a, dict) and not isinstance(b, dict):
+        return a + b
+    a, b = a or {}, b or {}
+    return {k: _added(a.get(k, 0), b.get(k, 0)) for k in {*a, *b}}
+
+
+def _whole(leaves: Dict[str, torch.Tensor], layout, ax, dax=None) -> Dict:
     """fp32 host copies of ``leaves`` (a model's parameters or gradients
     by name: compared on the host, beside the models on the device; a
     copy even of a host fp32 leaf, which the steps update in place), each
-    gathered whole over "model" (``ax``) where ``layout`` holds it sliced.
-    Plain collectives: DTensor's functional ones crash under gloo on CUDA
-    tensors (two ranks on one card)."""
-    from ..models import sharding
+    gathered whole over "model" (``ax``) and "data" (``dax``) where
+    ``layout`` holds it sliced.  Plain collectives: DTensor's functional
+    ones crash under gloo on CUDA tensors (two ranks on one card)."""
     out = {}
     for n, t in leaves.items():
-        dim = layout[n].shard_dim
-        if ax is not None and dim is not None:
-            t = sharding.all_gather(t, ax, dim)
-        out[n] = t.detach().to("cpu", torch.float32, copy=True)
+        out[n] = _gathered(t, layout[n], ax, dax).detach().to(
+            "cpu", torch.float32, copy=True)
     return out
+
+
+def _gathered(t: torch.Tensor, leaf, ax, dax) -> torch.Tensor:
+    """``t`` gathered whole over "model" (``ax``) and "data" (``dax``)
+    along the dimensions ``leaf`` holds it sliced along."""
+    from ..models import sharding
+    if ax is not None and leaf.shard_dim is not None:
+        t = sharding.all_gather(t, ax, leaf.shard_dim)
+    if dax is not None and leaf.width_dim is not None:
+        t = sharding.all_gather(t, dax, leaf.width_dim)
+    return t
 
 
 def _first_step(one: Dict[str, torch.Tensor], params, layout, ax,
                 g_one: Dict[str, torch.Tensor], g: Dict[str, torch.Tensor],
-                ks, ocfg, chunk: int = 1 << 24) -> Dict:
+                ks, ocfg, chunk: int = 1 << 24, dax=None) -> Dict:
     """The sharded run's parameters ``params`` after its first step (each
     gathered whole in turn) against the world of one's, ``one``.  Both
     started from the same leaves, so AdamW's first update predicts their
@@ -253,14 +286,11 @@ def _first_step(one: Dict[str, torch.Tensor], params, layout, ax,
     ``|difference - prediction|`` over its leaf's largest element (the
     leaf named), and the worst difference itself over its leaf's norm.
     The host copies go to the parameters' device a chunk at a time."""
-    from ..models import sharding
     from ..optim import optimizer as opt
     worst, leaf, gap = 0.0, None, 0.0
     dev = next(iter(params.values())).device
     for n, a in one.items():
-        b = params[n].detach()
-        if ax is not None and layout[n].shard_dim is not None:
-            b = sharding.all_gather(b, ax, layout[n].shard_dim)
+        b = _gathered(params[n].detach(), layout[n], ax, dax)
         b, a = b.float().reshape(-1), a.reshape(-1)
         err = d_sq = a_sq = 0.0
         for i in range(0, a.numel(), chunk):
@@ -312,7 +342,7 @@ def mesh_train_report(cfg, shape: Tuple[int, int], kwargs: Dict) -> Dict:
     from ..launch.specs import state_bytes_by_specs
     from ..launch.train import run_train
     from ..models import sharding
-    from ..optim.optimizer import OptConfig
+    from ..optim.optimizer import OptConfig, moment_dtype_for
     dev = _device()
     mesh = make_test_mesh(shape, ("data", "model"))
     if dev.type == "cuda":
@@ -324,7 +354,8 @@ def mesh_train_report(cfg, shape: Tuple[int, int], kwargs: Dict) -> Dict:
     coll = sharding.stats.as_dict()
     ostate = out["opt_state"]
     by_specs = state_bytes_by_specs(out["model"], dict(zip(
-        ("data", "model"), shape)), OptConfig())
+        ("data", "model"), shape)), OptConfig(
+            moment_dtype=moment_dtype_for(cfg)))
     return dict(
         losses=out["losses"], step_s=out["step_s"],
         param_bytes_by_specs=by_specs[0], moment_bytes_by_specs=by_specs[1],

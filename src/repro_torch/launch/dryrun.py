@@ -17,13 +17,17 @@ as one rank of the production mesh would:
   gives ``launch.mesh.make_production_mesh()`` its (16, 16) ("data",
   "model") or (2, 16, 16) mesh; the fake collectives move nothing;
 * rank 0's model is built on ``meta`` on its shards (``Model(cfg,
-  device="meta", tp=(0, 16))``): every weight, moment and activation has
-  a shape and a dtype and no storage;
+  device="meta", tp=(0, 16), dp=(0, 16))``: its "model" shards and its
+  slice of the experts' hidden width over "data"): every weight, moment
+  and activation has a shape and a dtype and no storage;
 * a train cell runs ``steps.build_sharded_train_step`` on the global
   batch; a prefill cell the tensor-parallel forward on the rank's rows,
   a decode cell one ``decode_step`` on the rank's rows against a full
-  cache, both under ``inference_mode`` with the "model" and batch axes
-  declared;
+  cache, both under ``inference_mode`` with the "model", batch and width
+  axes declared (the experts' width goes over "data" in every cell);
+* under ``sharding.pure_data_parallel()`` (the pure data-parallel
+  mapping of ``launch.hillclimb``) the rows go over every dimension and
+  nothing is tensor-parallel;
 * ``torch.utils.flop_counter.FlopCounterMode`` counts the FLOPs of the
   products it knows (matrix products, attention, convolutions); a
   ``TorchDispatchMode`` adds every other aten op's input and output bytes
@@ -129,8 +133,11 @@ def fake_world(world: int):
 def _link_rate(mesh, axis: str, accel: Dict[str, float]) -> float:
     """Bytes/s of a collective over ``axis``: NVLink where this rank's
     peers along it sit in its node, the per-GPU inter-node rate where
-    they span nodes."""
+    they span nodes; for a flattened axis ("pod_data"), its slowest
+    dimension's."""
     names = mesh.mesh_dim_names
+    if axis not in names:
+        return min(_link_rate(mesh, a, accel) for a in axis.split("_"))
     coord = list(mesh.get_coordinate())
     ranks = []
     for i in range(mesh.shape[names.index(axis)]):
@@ -151,7 +158,7 @@ def run_cell(arch: str, shape: Union[str, Any], multi_pod: bool,
     from ..core.accel import H100_SXM
     from ..launch import specs as specs_lib
     from ..launch.mesh import make_production_mesh
-    from ..launch.steps import build_sharded_train_step
+    from ..launch.steps import build_sharded_train_step, mesh_places
     from ..models import sharding
     from ..models.model import Model
     from ..optim import optimizer as opt_lib
@@ -174,19 +181,20 @@ def run_cell(arch: str, shape: Union[str, Any], multi_pod: bool,
         with fake_world(world):
             mesh = make_production_mesh(multi_pod=multi_pod)
             names = mesh.mesh_dim_names
-            model_ax = sharding.mesh_axis(mesh, "model")
+            places = mesh_places(mesh)
+            model_ax = sharding.mesh_axis(mesh, "model") \
+                if places["tp"][1] > 1 else None
+            width_ax = sharding.width_axis_of(mesh)
             rows_ax = sharding.rows_axis(mesh)
             rows = specs_lib.rows_per_rank(sh, rows_ax.size)
             if rows == sh.global_batch:
                 rows_ax = None
-            model = Model(cfg, device="meta",
-                          tp=(model_ax.rank, model_ax.size))
+            model = Model(cfg, device="meta", **places)
             mesh_shape = dict(zip(names, mesh.shape))
             ocfg = None
             if sh.kind == "train":
                 ocfg = opt_lib.OptConfig(
-                    moment_dtype="bfloat16" if cfg.param_count() > 1e11
-                    else "float32")
+                    moment_dtype=opt_lib.moment_dtype_for(cfg))
                 model.requires_grad_(True)
                 params = dict(model.named_parameters())
                 ostate = opt_lib.init(params, ocfg)
@@ -202,18 +210,19 @@ def run_cell(arch: str, shape: Union[str, Any], multi_pod: bool,
 
                 def run():
                     with torch.inference_mode(), sharding.parallel(
-                            model=model_ax, data=rows_ax):
+                            model=model_ax, data=rows_ax, width=width_ax):
                         model(inputs["tokens"], inputs.get("enc_embeds"),
                               frontend=inputs.get("frontend"))
                 extra = []
             else:                               # decode / long_decode
-                with sharding.parallel(model=model_ax, data=rows_ax):
+                with sharding.parallel(model=model_ax, data=rows_ax,
+                                       width=width_ax):
                     cache, tokens, pos = specs_lib.decode_inputs(
                         cfg, sh, model, rows)
 
                 def run():
                     with torch.inference_mode(), sharding.parallel(
-                            model=model_ax, data=rows_ax):
+                            model=model_ax, data=rows_ax, width=width_ax):
                         model.decode_step(cache, tokens, pos)
                 extra = [t for c in cache for t in c.values()]
             rec["rows_per_device"] = rows
@@ -262,7 +271,7 @@ def run_cell(arch: str, shape: Union[str, Any], multi_pod: bool,
             rec["t_memory_s"] = rec["bytes_per_device"] / \
                 acc["hbm_bw_bytes_per_s"]
             rec["t_collective_s"] = sum(
-                b / _link_rate(mesh, a if a != "pod_data" else "pod", acc)
+                b / _link_rate(mesh, a, acc)
                 for a, b in coll["by_axis"].items())
             terms = dict(compute=rec["t_compute_s"],
                          memory=rec["t_memory_s"],

@@ -20,8 +20,6 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
-_BATCH_AXES_OVERRIDE: Optional[Tuple[str, ...]] = None
-
 
 def _device_type() -> str:
     """The device type of this rank's devices: the launcher's (gloo may
@@ -105,15 +103,9 @@ def make_search_mesh(n_devices: Optional[int] = None, axis: str = "rows",
     return SearchMesh(tuple(devices), (axis,))
 
 
-def set_batch_axes_override(axes: Optional[Tuple[str, ...]]) -> None:
-    """Perf variant hook: e.g. ("data", "model") = pure data parallelism
-    over the whole mesh (TP disabled) for small models."""
-    global _BATCH_AXES_OVERRIDE
-    _BATCH_AXES_OVERRIDE = tuple(axes) if axes else None
-
-
 def batch_axes_of(mesh) -> Tuple[str, ...]:
-    names = tuple(mesh.mesh_dim_names or ())
-    if _BATCH_AXES_OVERRIDE is not None:
-        return tuple(a for a in _BATCH_AXES_OVERRIDE if a in names)
-    return tuple(a for a in names if a in ("pod", "data"))
+    """The mesh dimensions the batch's rows go over
+    (``models.sharding.row_axis_names``: every dimension under
+    ``sharding.pure_data_parallel``)."""
+    from ..models.sharding import row_axis_names
+    return row_axis_names(mesh)

@@ -20,7 +20,8 @@ encoder-decoder's ``enc_embeds`` too, a vision-language model's
 ``DeviceMesh`` of D·M ranks, one process per device, which the CLI
 starts itself (``distributed.launch.spawn``; a world of one runs in this
 process): gloo on the CPU, NCCL on the GPUs, rank r on GPU r.  Each rank
-builds only its shards over "model" (``Model(cfg, tp=...)``) and
+builds only its shards over "model" and its slice of the experts'
+hidden width over "data" (``Model(cfg, **steps.mesh_places(mesh))``) and
 computes on them; the moments are ZeRO-1 slices over "data", the batch's
 rows go over "data" (``steps.build_sharded_train_step``); rank 0 prints
 the lines an un-meshed run prints.  Refused, with exit code 2 and
@@ -77,7 +78,8 @@ def run_train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
     """Train ``cfg`` from weights drawn with seed 0 on ``device`` for
     ``steps`` steps of ``batch`` x ``seq`` synthetic tokens; with a
     ``mesh`` (a ("data", "model") ``DeviceMesh`` over the process group,
-    every rank calling), by ``steps.build_sharded_train_step``.
+    every rank calling), by ``steps.build_sharded_train_step``; the
+    moments in ``optimizer.moment_dtype_for(cfg)``.
 
     Returns ``losses`` (one per step run, replayed steps included),
     ``step_s`` (host seconds of each, ended by reading its loss), the
@@ -90,19 +92,17 @@ def run_train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
     from ..models.model import Model
     from ..optim import optimizer as opt
     from ..runtime.fault_tolerance import StepMonitor, Supervisor
-    from .steps import build_sharded_train_step, build_train_step
+    from .steps import (build_sharded_train_step, build_train_step,
+                        mesh_places)
 
     device = resolve_device(device)
     shape = ShapeSpec("cli", seq, batch, "train")
     data = make_data(cfg, shape)
     ocfg = opt.OptConfig(lr=lr, warmup_steps=max(steps // 20, 1),
-                         total_steps=steps)
-    tp = None
-    if mesh is not None and "model" in (mesh.mesh_dim_names or ()):
-        from ..models.sharding import mesh_axis
-        ax = mesh_axis(mesh, "model")
-        tp = (ax.rank, ax.size)         # only this rank's shards
-    model = Model(cfg, device=device, tp=tp,
+                         total_steps=steps,
+                         moment_dtype=opt.moment_dtype_for(cfg))
+    places = {} if mesh is None else mesh_places(mesh)  # only its shards
+    model = Model(cfg, device=device, **places,
                   generator=torch.Generator(device=device).manual_seed(0))
     model.requires_grad_(True)
     params = dict(model.named_parameters())

@@ -28,7 +28,9 @@ compute on their shards, Megatron's way: ``wq`` / ``wk`` / ``wv`` and
 ``w1`` / ``w3`` are column-parallel on the rank's heads and hidden units
 behind one :func:`sharding.copy_to_model`, ``wo`` and ``w2`` are
 row-parallel with one :func:`sharding.reduce_from_model` after each, and
-the experts run expert-parallel (``moe.moe_ffn(expert_parallel=True)``).
+the experts run expert-parallel (``moe.moe_ffn(expert_parallel=True)``),
+each on the rank's slice of its hidden width over "data" where the
+model is built with ``dp=(rank, D)``.
 Where the heads do not split whole over the group (:func:`heads_split`),
 the leaves concerned stay sharded in storage and are gathered whole at
 use: only ``wk`` / ``wv`` where each rank's query heads read one K/V head
@@ -376,7 +378,8 @@ def _kv_cache(cfg: ModelConfig, kv_heads: int, batch: int, max_len: int,
 
 def _moe_leaf_specs(cfg: ModelConfig) -> Dict[str, P]:
     """The reference's ``build_moe`` specs of the experts: over "model",
-    their hidden width over "data"."""
+    their hidden width over "data" (which ``Model(cfg, dp=...)`` splits
+    and computes on: ``_MoeParams``, ``moe._dispatch``)."""
     e = mdl(cfg.n_experts)
     return dict(wg=P(None, e), w1=P(e, None, "data"), w3=P(e, None, "data"),
                 w2=P(e, "data", None))
@@ -388,9 +391,12 @@ class _MoeParams(nn.Module):
     in fp32 with std ``1/sqrt(shape[-2])`` (``wg``: ``1/sqrt(d)``) and
     cast, the experts one at a time: a whole ``w1`` of arctic drawn at
     once would be a 17.8 GB fp32 temporary.  ``tp``: the experts are
-    sharded over "model" and only the rank's are kept (every expert is
-    still drawn, in order, so the draws are the world of one's); their
-    "data" dimension is not split here (the train step gathers it)."""
+    sharded over "model" and only the rank's are kept; ``width``: under
+    ``Model(cfg, dp=(rank, D))`` each kept expert keeps only the rank's
+    ``d_ff / D`` slice of its hidden width (``w1`` / ``w3 [E/m, d,
+    d_ff/D]``, ``w2 [E/m, d_ff/D, d]``).  Every expert is still drawn
+    whole, in order, so the draws are the world of one's and the ranks'
+    slices concatenate to its leaves bit for bit."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
@@ -398,6 +404,7 @@ class _MoeParams(nn.Module):
         specs = _moe_leaf_specs(cfg)
         self.tp = sharding.build_size() > 1 and \
             model_dim(specs["w1"]) is not None
+        wrank, width = sharding.build_width()
         for name, shape in moe_lib.moe_params_shape(
                 cfg.d_model, cfg.n_experts, cfg.moe_d_ff).items():
             if len(shape) == 2:
@@ -409,12 +416,15 @@ class _MoeParams(nn.Module):
             if self.tp:
                 n = shape[0] // sharding.build_size()
                 lo = n * sharding.build_rank()
-            w = torch.empty((n,) + tuple(shape[1:]), dtype=dt,
-                            device=gen.device)
+            # the hidden width's dimension within one expert's [.., ..]
+            fdim = sharding.data_dim(specs[name]) - 1
+            kept = list(shape[1:])
+            kept[fdim] //= width
+            w = torch.empty((n, *kept), dtype=dt, device=gen.device)
             for e in range(shape[0] if gen.device.type != "meta" else 0):
                 we = _draw(gen, shape[1:], 1.0 / math.sqrt(shape[-2]), dt)
                 if lo <= e < lo + n:
-                    w[e - lo] = we
+                    w[e - lo] = sharding.shard_of(we, fdim, wrank, width)
             setattr(self, name, _param(w))
 
 

@@ -86,19 +86,21 @@ def _named_leaves(model: Model, tree: Mapping[str, Any]
     """``(port name, port parameter, tree leaf, tree path)`` for every
     parameter of ``model``, the leaf sliced to the parameter's layer and
     its path naming the slice (``g0.attn.wq[1, 0]``); for a model built
-    on shards (``Model(cfg, tp=(rank, m))``) each leaf the rank holds
-    sliced is sliced as the build slices it."""
-    rank, m = model.tp
-    layout = model.layout() if m > 1 else {}
+    on shards (``Model(cfg, tp=(rank, m), dp=(rank, D))``) each leaf the
+    rank holds sliced is sliced as the build slices it."""
+    layout = model.layout()
     for name, p, leaf, path, idx in _named_slots(model, tree):
         if idx:
             leaf, path = leaf[idx], f"{path}{list(idx)}"
-        dim = layout[name].shard_dim if m > 1 else None
-        if dim is not None:
+        for axis, (rank, m), dim in (
+                ("model", model.tp, layout[name].shard_dim),
+                ("data", model.dp, layout[name].width_dim)):
+            if dim is None:
+                continue
             n = np.shape(leaf)[dim] // m
             leaf = np.take(leaf, np.arange(rank * n, (rank + 1) * n),
                            axis=dim)
-            path = f"{path}<model {rank}/{m}>"
+            path = f"{path}<{axis} {rank}/{m}>"
         yield name, p, leaf, path
 
 

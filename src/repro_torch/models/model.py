@@ -22,7 +22,8 @@ every ``attn_cross`` block attends to.
 Public surface::
 
     m = Model(cfg, device=None, generator=None,   # weights built on device
-              tp=None)                        # or (rank, m): its shards
+              tp=None,                        # or (rank, m): its shards
+              dp=None)                        # or (rank, D): experts' width
     logits = m(tokens[, enc_embeds][, frontend=])  # prefill forward [B,S,V]
     cache = m.init_cache(batch, max_len[, enc_embeds])  # one per position
     m.encode_into(cache, enc_embeds)               # the encoder, once
@@ -67,8 +68,11 @@ builds rank ``rank``'s shards of a "model" group of ``m``
 (:mod:`~repro_torch.models.blocks` says which and how they compute): each
 leaf is drawn whole from the same seeded stream as the world of one's and
 sliced, so the ranks' shards concatenate bit for bit to the one-device
-model's leaves.  Such a model runs only inside
-``sharding.parallel(model=...)`` over a group of ``m``.  Its embedding is
+model's leaves.  ``dp=(rank, D)`` keeps, of every expert, only the rank's
+``d_ff / D`` slice of its hidden width along the mesh's "data" dimension
+(the reference's ``P(E, None, "data")``), drawn the same way.  Such a
+model runs only inside ``sharding.parallel(model=..., width=...)`` over
+groups of ``m`` and ``D``.  Its embedding is
 vocab-parallel (a masked local lookup, summed over "model"), its logits
 are the rank's slice of the vocabulary (``forward`` and ``decode_step``
 return ``[..., V/m]``), and ``loss_fn``'s cross entropy is vocab-parallel
@@ -163,11 +167,15 @@ class Leaf:
     (stored sliced, gathered whole over "model" where it is used),
     ``"step"`` (stored whole, its "model" slice gathered by the train
     step after each update) or ``None``; ``data_dim`` the dimension its
-    spec shards over "data", which the train step gathers too."""
+    spec shards over "data"; ``width_dim`` the dimension it is stored
+    sliced along over "data" (the experts' hidden width, in a model built
+    with ``dp=(rank, D)``, D > 1; ``None``: whole over "data", and the
+    train step keeps a ZeRO-1 slice of it)."""
     spec: P
     shard_dim: Optional[int]
     gather: Optional[str]
     data_dim: Optional[int]
+    width_dim: Optional[int] = None
 
 
 class _NoDraws:
@@ -228,11 +236,13 @@ class Model(nn.Module):
     there is none; ``"meta"``: allocated, not drawn) from ``generator``
     (default: seed 0 on that device), tensor by tensor, in
     ``cfg.param_dtype``; with ``tp=(rank, m)`` only rank ``rank``'s
-    shards of a "model" group of ``m``."""
+    shards of a "model" group of ``m``; with ``dp=(rank, D)`` only rank
+    ``rank``'s slice of the experts' hidden width over "data"."""
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None,
-                 tp: Optional[Tuple[int, int]] = None):
+                 tp: Optional[Tuple[int, int]] = None,
+                 dp: Optional[Tuple[int, int]] = None):
         super().__init__()
         reason = unported(cfg)
         if reason:
@@ -240,7 +250,8 @@ class Model(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.tp = tuple(tp) if tp is not None else (0, 1)
-        with sharding.build_shards(*self.tp):
+        self.dp = tuple(dp) if dp is not None else (0, 1)
+        with sharding.build_shards(*self.tp, width=self.dp):
             self._build(cfg, device, generator)
         for name, p in self.named_parameters():
             p.leaf_name = name          # named in a gather's count
@@ -290,6 +301,14 @@ class Model(nn.Module):
                 f"this model holds rank {self.tp[0]}'s shards of a 'model' "
                 f"group of {m}; run it inside sharding.parallel(model=...) "
                 f"over such a group (declared: {sharding.model_size()})")
+        width = sharding.width_axis()
+        d = 1 if width is None else width.size
+        if self.cfg.n_experts and d != self.dp[1]:
+            raise RuntimeError(
+                f"this model holds rank {self.dp[0]}'s slice of the "
+                f"experts' hidden width over {self.dp[1]}; run it inside "
+                f"sharding.parallel(width=...) over such a group "
+                f"(declared: {d})")
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """The embeddings of ``tokens``: a lookup; where the table is
@@ -423,8 +442,9 @@ class Model(nn.Module):
         rank's query heads read one K/V head, all four where the query
         heads do not split; ``blocks.heads_split``), and the leaves of the recurrent
         blocks, which are stored and computed whole (``gather="step"``).
-        Every leaf whose spec names "data" (the experts' hidden width) is
-        gathered over "data" by the train step."""
+        A leaf whose spec names "data" (the experts' hidden width) is
+        stored sliced along it in a model built with ``dp=(rank, D)``
+        (``width_dim``), and whole otherwise."""
         m = self.tp[1]
         owner = {}
         for mname, mod in self.named_modules():
@@ -440,18 +460,23 @@ class Model(nn.Module):
             elif isinstance(mod, _AttnParams) and \
                     n.rsplit(".", 1)[1] in mod.gather_leaves:
                 gather = "use"
-            out[n] = Leaf(spec, dim, gather, sharding.data_dim(spec))
+            ddim = sharding.data_dim(spec)
+            out[n] = Leaf(spec, dim, gather, ddim,
+                          ddim if self.dp[1] > 1 else None)
         return out
 
     def whole_shapes(self) -> Dict[str, Tuple[int, ...]]:
         """Every parameter's shape in the world of one, by name: the
-        shard's with its "model" dimension (``layout()``) times m."""
+        shard's with its "model" dimension (``layout()``) times m and its
+        "data" one (``width_dim``) times D."""
         layout = self.layout()
         out = {}
         for n, p in self.named_parameters():
             shape = list(p.shape)
             if layout[n].shard_dim is not None:
                 shape[layout[n].shard_dim] *= self.tp[1]
+            if layout[n].width_dim is not None:
+                shape[layout[n].width_dim] *= self.dp[1]
             out[n] = tuple(shape)
         return out
 

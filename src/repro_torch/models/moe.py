@@ -45,16 +45,25 @@ the lower ranks that share a group, so it keeps and drops exactly the
 (token, slot) pairs the world of one does.  ``expert_parallel`` runs the
 experts sharded over "model": every rank routes from the gathered
 logits, runs only its own experts, and one all-reduce adds up the
-combine.  With no axis declared both are the single-device code.
+combine.  Under a width axis each rank holds its slice of the experts'
+hidden width and computes every data rank's slots on it
+(:func:`_dispatch`).  With no axis declared all of this is the
+single-device code.
 """
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+import collections
+from typing import List, Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import sharding
+
+#: the dispatches run under a width axis, by what went over it
+#: (``"tokens"``, or ``"replicated"``: nothing, the rows being the same
+#: on every width rank)
+width_forms: collections.Counter = collections.Counter()
 
 
 def moe_params_shape(d_model: int, n_experts: int, d_ff: int):
@@ -120,6 +129,21 @@ def _positions(top_i: torch.Tensor, n_experts: int
     return flat_pos, pos[:, -1] + 1
 
 
+def _width_groups(g: int, share: int, width: sharding.Axis) -> List[int]:
+    """The buffer group of each of the ``width.size · g`` groups the
+    width gather brings together (every member's ``g`` in member order),
+    numbered from 0 by the whole batch's group each belongs to: a group
+    of its own where groups fall whole inside a rank's rows (``share``
+    1), the one the ``share`` consecutive rows ranks hold together
+    otherwise (the flat form: one)."""
+    q0 = sharding.data_axis().rank - width.rank * width.stride
+    whole = [(q0 + w * width.stride) * g + j if share == 1 else
+             (q0 + w * width.stride) // share
+             for w in range(width.size) for j in range(g)]
+    number = {k: i for i, k in enumerate(sorted(set(whole)))}
+    return [number[k] for k in whole]
+
+
 def _dispatch(xg: torch.Tensor, w: Mapping[str, torch.Tensor], top_k: int,
               cap: int, ranks_per_group: int = 1,
               expert_parallel: bool = False
@@ -136,9 +160,21 @@ def _dispatch(xg: torch.Tensor, w: Mapping[str, torch.Tensor], top_k: int,
     ``expert_parallel`` the router's and the experts' leaves are this
     rank's slice over "model": the logits are gathered whole, every rank
     routes alike, fills and runs only its own experts, and the combine's
-    partial sums are added up over "model"."""
+    partial sums are added up over "model".
+
+    Under a width axis (:func:`sharding.width_axis`) the experts' leaves
+    are this rank's slice of their hidden width ``d_ff / D``.  Every
+    width rank's tokens and their routing are gathered over the axis (the
+    flat form's slot positions are the whole batch's, disjoint between
+    ranks) and dispatched into the buffers of the groups they belong to,
+    the SwiGLU runs on the slice (a partial sum of each output), and the
+    combined partial outputs are summed back to the rank that owns each
+    row (:func:`sharding.scatter_over_width`).  Where every width rank
+    holds the same rows (the batch replicated), nothing is gathered and
+    the partial outputs are all-reduced."""
     g, tg, d = xg.shape
     data = sharding.data_axis()
+    width = sharding.width_axis()
     h = sharding.copy_to_model(xg) if expert_parallel else xg
     probs, top_p, top_i = route(h, w["wg"], top_k, expert_parallel)
     e = probs.shape[-1]
@@ -176,27 +212,53 @@ def _dispatch(xg: torch.Tensor, w: Mapping[str, torch.Tensor], top_k: int,
         top_p = sharding.copy_to_model(top_p)
     flat_w = top_p.reshape(g, tg * top_k) * keep
     safe_pos = torch.where(keep, flat_pos, cap - 1)
-    gidx = torch.arange(g, device=xg.device)[:, None].expand(g, tg * top_k)
+
+    # over a width axis the tokens and their routing are gathered, unless
+    # every width rank holds the same rows
+    gather = width is not None and data is not None
+    if width is not None:
+        width_forms["tokens" if gather else "replicated"] += 1
+    if gather:
+        h = sharding.gather_over_width(h)
+        flat_w = sharding.gather_over_width(flat_w)
+        keep, flat_e, safe_pos = sharding.all_gather(
+            torch.stack([keep.long(), flat_e, safe_pos]), width, dim=1)
+        keep = keep.bool()
+        groups = _width_groups(g, ranks_per_group, width)
+        n_buf = max(groups) + 1
+        gidx = torch.tensor(groups, device=xg.device)
+    else:
+        if width is not None:
+            h = sharding.copy_to_width(h)
+        n_buf = g
+        gidx = torch.arange(g, device=xg.device)
+    gidx = gidx[:, None].expand(flat_e.shape)
 
     # dispatch into buffers [G, E, C, d]: dropped slots add zeros
     xk = torch.where(keep[..., None], h.repeat_interleave(top_k, dim=1),
                      0).to(xg.dtype)
-    buf = torch.zeros((g, n_local, cap, d), dtype=xg.dtype,
+    buf = torch.zeros((n_buf, n_local, cap, d), dtype=xg.dtype,
                       device=xg.device)
     buf.index_put_((gidx, flat_e, safe_pos), xk, accumulate=True)
     del xk
 
-    # expert compute (batched SwiGLU): expert-major [E, G·C, d]
-    be = buf.transpose(0, 1).reshape(n_local, g * cap, d)
+    # expert compute (batched SwiGLU): expert-major [E, G·C, d], on this
+    # rank's slice of the hidden width under a width axis
+    nb = buf.shape[0]
+    be = buf.transpose(0, 1).reshape(n_local, nb * cap, d)
     del buf
     hid = F.silu(torch.bmm(be, w["w1"])) * torch.bmm(be, w["w3"])
     del be
-    out = torch.bmm(hid, w["w2"]).reshape(n_local, g, cap, d).transpose(0, 1)
+    out = torch.bmm(hid, w["w2"]).reshape(n_local, nb, cap, d).transpose(0, 1)
     del hid
 
     # combine
     yk = out[gidx, flat_e, safe_pos] * flat_w[..., None].to(xg.dtype)
-    y = yk.reshape(g, tg, top_k, d).sum(dim=2)
+    y = yk.reshape(-1, tg, top_k, d).sum(dim=2)
+    if gather:
+        y = sharding.scatter_over_width(y)
+    elif width is not None:
+        y = sharding.reduce_from_width(y)
     if expert_parallel:
         y = sharding.reduce_from_model(y)
     return y, aux

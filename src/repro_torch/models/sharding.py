@@ -18,7 +18,11 @@ returned as it is, so the same model code runs everywhere.
 
 ``mdl(width)`` is the reference's ``blocks._mdl``: a width is sharded over
 ``"model"`` when it divides by the production mesh's tensor-parallel
-degree ``TP``, and replicated otherwise.
+degree ``TP``, and replicated otherwise.  :func:`pure_data_parallel`
+turns on the pure data-parallel mapping of a small model (the
+reference's ``blocks.set_tp_enabled(False)`` together with its batch axes
+over ("data", "model")): ``mdl`` replicates every width and the batch's
+rows go over every mesh dimension (:func:`row_axis_names`).
 
 **Where the reference's GSPMD shards compute, the port shards it by hand**
 (Megatron tensor parallelism).  A model built with ``Model(cfg,
@@ -29,7 +33,10 @@ row-parallel product followed by one :func:`reduce_from_model`, experts
 parallel over "model", the vocabulary sharded at both ends.
 :func:`parallel` declares, for the duration of a step, the "model" and
 "data" :class:`Axis` (a process group, its size and this rank's index in
-it) that the model's collectives run over:
+it) that the model's collectives run over, and the "width" axis that the
+experts' hidden width is split over (the mesh's "data" dimension alone,
+where the rows go over "pod" too; ``Model(cfg, dp=(rank, D))`` keeps the
+rank's slice of it, :func:`build_shards`):
 
 * :func:`copy_to_model`: identity forward, all-reduce backward (the input
   of a column-parallel product);
@@ -41,6 +48,12 @@ it) that the model's collectives run over:
 * :func:`sum_over_data`: all-reduce forward and backward (the
   mixture-of-experts' batch statistics, whose gradient every data rank's
   loss carries);
+* :func:`gather_over_width` / :func:`scatter_over_width`: all-gather
+  forward and reduce-scatter backward, and the converse (the expert
+  inputs every width rank's slice of the experts needs, and those
+  slices' partial outputs summed back to the rank that owns each row);
+  :func:`copy_to_width` / :func:`reduce_from_width` where every width
+  rank holds the same rows;
 * :func:`all_reduce`, :func:`all_gather`, :func:`reduce_scatter`: the
   plain collectives of the train step.
 
@@ -59,6 +72,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 TP = 16     # tensor-parallel degree of the production mesh ("model" axis)
+_PURE_DP = False
 
 _BATCH_AXES: Optional[Tuple[str, ...]] = None
 
@@ -76,9 +90,27 @@ class P(tuple):
         return f"P{tuple.__repr__(self)}"
 
 
+@contextlib.contextmanager
+def pure_data_parallel():
+    """The pure data-parallel mapping of a small model, for the duration
+    of the block: the specs name no "model" (:func:`mdl` replicates every
+    width) and the batch's rows go over every mesh dimension
+    (:func:`row_axis_names`); the mapping before the block is restored
+    however it ends."""
+    global _PURE_DP
+    was, _PURE_DP = _PURE_DP, True
+    try:
+        yield
+    finally:
+        _PURE_DP = was
+
+
 def mdl(width: int) -> Optional[str]:
     """``"model"`` if ``width`` divides evenly across ``TP``, else
-    ``None`` (replicated)."""
+    ``None`` (replicated); always ``None`` under
+    :func:`pure_data_parallel`."""
+    if _PURE_DP:
+        return None
     return "model" if width % TP == 0 else None
 
 
@@ -175,11 +207,15 @@ def constrain_batch(x, *rest):
 class Axis:
     """One mesh dimension a rank computes over: its process group, its
     size, the rank's index along it and its name (under which
-    :data:`stats` counts its bytes)."""
+    :data:`stats` counts its bytes).  ``stride``, for the width axis: how
+    far apart along the rows axis its consecutive members are (1 where
+    the rows go over ("pod", "data"), the "model" size where they go over
+    ("data", "model"))."""
     group: Any
     size: int
     rank: int
     name: str = ""
+    stride: int = 1
 
 
 def mesh_axis(mesh, name: str) -> Axis:
@@ -189,32 +225,56 @@ def mesh_axis(mesh, name: str) -> Axis:
                 mesh.get_local_rank(name), name)
 
 
+def row_axis_names(mesh) -> Tuple[str, ...]:
+    """The mesh dimensions the batch's rows go over, in mesh order:
+    ("pod", "data") where the mesh has "pod", ("data",) otherwise, and
+    every dimension under :func:`pure_data_parallel`."""
+    names = tuple(mesh.mesh_dim_names or ())
+    return names if _PURE_DP else tuple(a for a in names
+                                         if a in ("pod", "data"))
+
+
 def rows_axis(mesh) -> Axis:
     """The :class:`Axis` the batch's rows go over on ``mesh``: "data", or
-    ("pod", "data") flattened pod-major where the mesh has "pod"."""
-    if "pod" not in mesh.mesh_dim_names:
-        return mesh_axis(mesh, "data")
-    flat = mesh["pod", "data"]._flatten("pod_data")
-    return Axis(flat.get_group(), flat.size(), flat.get_local_rank(),
-                "pod_data")
+    the dimensions of :func:`row_axis_names` flattened in mesh order
+    ("pod_data", pod-major; "data_model", data-major)."""
+    axes = row_axis_names(mesh)
+    if len(axes) == 1:
+        return mesh_axis(mesh, axes[0])
+    name = "_".join(axes)
+    flat = mesh[axes]._flatten(name)
+    return Axis(flat.get_group(), flat.size(), flat.get_local_rank(), name)
+
+
+def width_axis_of(mesh) -> Axis:
+    """The :class:`Axis` the experts' hidden width goes over on ``mesh``:
+    its "data" dimension alone, with its members' ``stride`` along
+    :func:`rows_axis`."""
+    axes = row_axis_names(mesh)
+    stride = 1
+    for a in axes[axes.index("data") + 1:]:
+        stride *= mesh.shape[mesh.mesh_dim_names.index(a)]
+    return dataclasses.replace(mesh_axis(mesh, "data"), stride=stride)
 
 
 _MODEL: Optional[Axis] = None
 _DATA: Optional[Axis] = None
-_BUILD: Optional[Tuple[int, int]] = None
+_WIDTH: Optional[Axis] = None
+_BUILD: Optional[Tuple[int, int, int, int]] = None
 
 
 @contextlib.contextmanager
-def parallel(model: Optional[Axis] = None, data: Optional[Axis] = None):
-    """Declare the "model" and "data" axes the model's collectives run
-    over, for the block."""
-    global _MODEL, _DATA
-    prev = _MODEL, _DATA
-    _MODEL, _DATA = model, data
+def parallel(model: Optional[Axis] = None, data: Optional[Axis] = None,
+             width: Optional[Axis] = None):
+    """Declare the "model" axis, the rows' "data" axis and the experts'
+    width axis the model's collectives run over, for the block."""
+    global _MODEL, _DATA, _WIDTH
+    prev = _MODEL, _DATA, _WIDTH
+    _MODEL, _DATA, _WIDTH = model, data, width
     try:
         yield
     finally:
-        _MODEL, _DATA = prev
+        _MODEL, _DATA, _WIDTH = prev
 
 
 def model_axis() -> Optional[Axis]:
@@ -224,6 +284,11 @@ def model_axis() -> Optional[Axis]:
 def data_axis() -> Optional[Axis]:
     """The declared "data" axis, ``None`` without one or at one rank."""
     return _DATA if _DATA is not None and _DATA.size > 1 else None
+
+
+def width_axis() -> Optional[Axis]:
+    """The declared width axis, ``None`` without one or at one rank."""
+    return _WIDTH if _live(_WIDTH) else None
 
 
 def model_size() -> int:
@@ -238,13 +303,16 @@ def model_rank() -> int:
 
 
 @contextlib.contextmanager
-def build_shards(rank: int, size: int):
+def build_shards(rank: int, size: int, width: Tuple[int, int] = (0, 1)):
     """Within the block, :func:`keep_shard` keeps rank ``rank``'s slice
-    of ``size`` along each leaf's "model" dimension."""
+    of ``size`` along each leaf's "model" dimension, and the experts keep
+    the slice ``width = (rank, D)`` of their hidden width
+    (:func:`build_width`)."""
     global _BUILD
-    if not 0 <= rank < size:
-        raise ValueError(f"tp rank {rank} is outside a group of {size}")
-    prev, _BUILD = _BUILD, (rank, size)
+    for r, n, what in ((rank, size, "tp"), (*width, "dp")):
+        if not 0 <= r < n:
+            raise ValueError(f"{what} rank {r} is outside a group of {n}")
+    prev, _BUILD = _BUILD, (rank, size, *width)
     try:
         yield
     finally:
@@ -259,6 +327,12 @@ def build_size() -> int:
 def build_rank() -> int:
     """The rank whose shards the model being built keeps."""
     return 0 if _BUILD is None else _BUILD[0]
+
+
+def build_width() -> Tuple[int, int]:
+    """``(rank, D)``: the slice of the experts' hidden width the model
+    being built keeps (``(0, 1)``: whole)."""
+    return (0, 1) if _BUILD is None else _BUILD[2:]
 
 
 def model_dim(spec: Optional[P]) -> Optional[int]:
@@ -295,7 +369,7 @@ def keep_shard(t: torch.Tensor, spec: Optional[P]) -> torch.Tensor:
     dim = model_dim(spec)
     if _BUILD is None or dim is None or _BUILD[1] == 1:
         return t
-    return shard_of(t, dim, *_BUILD).clone()
+    return shard_of(t, dim, *_BUILD[:2]).clone()
 
 
 # ------------------------------------------------------ collectives
@@ -384,24 +458,51 @@ def reduce_scatter(x: torch.Tensor, axis: Optional[Axis], dim: int = 0
     return out.movedim(0, dim)
 
 
-class _CopyToModel(torch.autograd.Function):
+class _Copy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, axis):
+        ctx.axis = axis
         return x
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g.clone(), _MODEL)
+        return all_reduce(g.clone(), ctx.axis), None
 
 
-class _ReduceFromModel(torch.autograd.Function):
+class _Reduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        return all_reduce(x.clone(), _MODEL)
+    def forward(ctx, x, axis):
+        return all_reduce(x.clone(), axis)
 
     @staticmethod
     def backward(ctx, g):
-        return g
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather forward, reduce-scatter backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.axis, ctx.dim), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """Reduce-scatter forward, all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return reduce_scatter(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.axis, ctx.dim), None, None
 
 
 class _GatherFromModel(torch.autograd.Function):
@@ -431,12 +532,12 @@ class _SumOverData(torch.autograd.Function):
 
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
     """Identity forward, all-reduce over "model" backward."""
-    return _CopyToModel.apply(x) if _live(_MODEL) else x
+    return _Copy.apply(x, _MODEL) if _live(_MODEL) else x
 
 
 def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     """All-reduce over "model" forward, identity backward."""
-    return _ReduceFromModel.apply(x) if _live(_MODEL) else x
+    return _Reduce.apply(x, _MODEL) if _live(_MODEL) else x
 
 
 def gather_from_model(x: torch.Tensor, dim: int,
@@ -454,3 +555,27 @@ def gather_from_model(x: torch.Tensor, dim: int,
 def sum_over_data(x: torch.Tensor) -> torch.Tensor:
     """All-reduce over "data" forward and backward."""
     return _SumOverData.apply(x) if _live(_DATA) else x
+
+
+def gather_over_width(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Every width rank's ``x`` concatenated along ``dim`` in rank order
+    (all-gather forward); backward, this rank's slice of the sum of the
+    ranks' gradients (reduce-scatter)."""
+    return _Gather.apply(x, _WIDTH, dim) if _live(_WIDTH) else x
+
+
+def scatter_over_width(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum of the width ranks'
+    ``x`` (reduce-scatter forward); backward, every rank's gradient
+    concatenated (all-gather)."""
+    return _Scatter.apply(x, _WIDTH, dim) if _live(_WIDTH) else x
+
+
+def copy_to_width(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward, all-reduce over the width axis backward."""
+    return _Copy.apply(x, _WIDTH) if _live(_WIDTH) else x
+
+
+def reduce_from_width(x: torch.Tensor) -> torch.Tensor:
+    """All-reduce over the width axis forward, identity backward."""
+    return _Reduce.apply(x, _WIDTH) if _live(_WIDTH) else x

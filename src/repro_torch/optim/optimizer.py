@@ -11,12 +11,14 @@ and the moments in place under ``torch.no_grad()``, and the step counter
 is a device tensor, so a step needs no host sync.
 
 Moments are fp32, or bf16 under ``moment_dtype="bfloat16"`` (the
-reference's low-memory mode).  :func:`zero1_spec` / :func:`opt_state_specs`
-are the reference's ZeRO-1 specs: each moment takes its parameter's spec
-with the largest still-unsharded axis sharded over "data" where it
-divides; ``launch.steps.build_sharded_train_step`` places the moments by
-them and updates each rank's slice with :func:`update_leaf`, the same
-arithmetic :func:`apply` runs on a whole leaf.
+reference's low-memory mode), which :func:`moment_dtype_for` takes for
+the architectures above :data:`BF16_MOMENTS_ABOVE` parameters.
+:func:`zero1_spec` / :func:`opt_state_specs` are the reference's ZeRO-1
+specs: each moment takes its parameter's spec with the largest
+still-unsharded axis sharded over "data" where it divides;
+``launch.steps.build_sharded_train_step`` places the moments by them and
+updates each rank's slice with :func:`update_leaf`, the same arithmetic
+:func:`apply` runs on a whole leaf.
 """
 from __future__ import annotations
 
@@ -39,6 +41,23 @@ class OptConfig:
     warmup_steps: int = 100
     total_steps: int = 10_000
     moment_dtype: str = "float32"      # "bfloat16" => low-memory mode
+
+
+#: an architecture above this many parameters keeps bf16 moments (the
+#: reference's dry-run takes its low-memory mode there)
+BF16_MOMENTS_ABOVE = 1e11
+
+
+def moment_dtype_for(cfg) -> str:
+    """The moments' dtype a model of ``cfg`` trains with: ``"bfloat16"``
+    where its architecture's published size (the registered config of its
+    name, else ``cfg`` itself) is above :data:`BF16_MOMENTS_ABOVE`, so a
+    run that cuts the depth or the experts keeps the full model's mode;
+    ``"float32"`` otherwise."""
+    from ..configs import ARCHS
+    full = ARCHS.get(cfg.name, cfg)
+    return "bfloat16" if full.param_count() > BF16_MOMENTS_ABOVE \
+        else "float32"
 
 
 class OptState(NamedTuple):
@@ -101,11 +120,29 @@ def step_scalars(state: OptState, gnorm: torch.Tensor,
         bc2=1 - b2 ** stepf)
 
 
+#: elements a leaf's update takes at a time: its fp32 temporaries stay
+#: within a few multiples of 1 GiB whatever the leaf's size
+UPDATE_CHUNK = 1 << 28
+
+
 @torch.no_grad()
 def update_leaf(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                 v: torch.Tensor, k: StepScalars, cfg: OptConfig) -> None:
     """One AdamW update of a parameter ``p`` (or any slice of it) and its
-    moments ``m``, ``v`` (the same slice) in place, in fp32."""
+    moments ``m``, ``v`` (the same slice) in place, in fp32; a leaf of
+    more than ``UPDATE_CHUNK`` elements a block of its leading dimension
+    at a time (elementwise: the same numbers)."""
+    if p.dim() and p.numel() > UPDATE_CHUNK and p.shape[0] > 1:
+        rows = max(1, UPDATE_CHUNK // (p.numel() // p.shape[0]))
+        for i in range(0, p.shape[0], rows):
+            part = slice(i, i + rows)
+            _update(p[part], g[part], m[part], v[part], k, cfg)
+        return
+    _update(p, g, m, v, k, cfg)
+
+
+def _update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+            v: torch.Tensor, k: StepScalars, cfg: OptConfig) -> None:
     b1, b2 = cfg.betas
     g = g.float() * k.scale
     m2 = b1 * m.float() + (1 - b1) * g

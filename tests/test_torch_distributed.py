@@ -155,11 +155,9 @@ def test_batch_axes_of_reads_the_dim_names():
     class Mesh:
         mesh_dim_names = ("pod", "data", "model")
     assert mesh_lib.batch_axes_of(Mesh) == ("pod", "data")
-    mesh_lib.set_batch_axes_override(("data", "model"))
-    try:
-        assert mesh_lib.batch_axes_of(Mesh) == ("data", "model")
-    finally:
-        mesh_lib.set_batch_axes_override(None)
+    with sharding.pure_data_parallel():
+        assert mesh_lib.batch_axes_of(Mesh) == ("pod", "data", "model")
+    assert mesh_lib.batch_axes_of(Mesh) == ("pod", "data")
 
 
 # ---------------------------------------------------------------- compression

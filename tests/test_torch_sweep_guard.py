@@ -129,7 +129,9 @@ def test_committed_baseline_is_well_formed():
     assert all(len(h) == 16 for h in base["graph_hashes"].values())
 
 
-def test_run_torch_es_ops_smoke_on_the_cpu(capsys):
+def test_run_torch_es_ops_smoke_on_the_cpu(capsys, monkeypatch, tmp_path):
+    from benchmarks import roofline_torch
+    monkeypatch.setattr(roofline_torch, "OUT_DIR", str(tmp_path))
     run_torch.main(["--quick", "--only", "es_ops,roofline",
                     "--device", "cpu"])
     lines = capsys.readouterr().out.splitlines()
@@ -137,4 +139,8 @@ def test_run_torch_es_ops_smoke_on_the_cpu(capsys):
     es = [ln for ln in lines if ln.startswith("es_ops,")]
     assert len(es) == 1 and "combined_speedup=" in es[0]
     assert "device_pairs_per_s=" in es[0]
-    assert "roofline,0.0,not_ported" in lines
+    # the roofline line is the dry-run table's summary, no longer
+    # "not_ported"
+    roof = [ln for ln in lines if ln.startswith("roofline,")]
+    assert len(roof) == 1 and "records=80;ok=66;skipped=14" in roof[0]
+    assert (tmp_path / "roofline_torch_16_16.md").exists()
