@@ -3286,11 +3286,56 @@ DIST_BIG = dict(mesh=(1, 4), seq=4096, batch=1, steps=4, warmup=1)
 # (1, 2) tensor-parallel mesh on qwen2-vl cut to 2 layers, and a (2, 1)
 # data-parallel mixture-of-experts mesh on arctic cut to 1 layer of 8
 # experts (its flat dispatch drops ~22 % of the slots at random weights),
-# fp32, each rank holding the world of one too
-DIST_SHARED = dict(tp=dict(arch=VLM_ARCH, mesh=(1, 2), layers=2),
+# fp32, with the world of one on rank 0.  Then the blocks split by heads
+# over "model" (``blocks.heads_split``): zamba2 at full width (80
+# Mamba-2 heads, 40 a rank) cut to one super-block (5 Mamba-2 layers and
+# the shared attention); xlstm at full width (4 heads, 2 a rank) cut to
+# DIST_XLSTM's depth and sequence; and qwen2-vl's 28 query heads over 4
+# K/V heads on (1, 8), eight gloo ranks (3 or 4 query heads a rank and
+# the K/V head they read; all four attention leaves gathered at use),
+# cut to 1 layer and a vocabulary of 8,192 so that the world of one fits
+# the card beside the ranks, and 1 step (the first update is predicted
+# element by element, and the leaves after it held).  ``floor_k``: the
+# case also runs the world of one twice more, one ulp apart, for its
+# fp32 floor, and a figure within ``floor_k`` times its floor passes.
+# The whole script must end within 1,200 s on a card whose host may be
+# slow (the host-bound phases of one run took 1.4x another's, PERF.md
+# §6): the tp case at the whole vocabulary took 183.5-209.8 s, 130-150 s
+# more than at 8,192, more than the new cases take together beside the
+# `ssm` line's xlstm train back at 24 layers, so the tp case keeps the
+# vocabulary of 8,192 (70 % of its weights were the two vocabulary
+# tables, which hold no head and no sharding this line checks)
+# xlstm in fp32 is chaotic at depth: its world of one, run again from its
+# embedding one ulp up, moves its own loss by 2.3e-3 and gradients by up
+# to 39 % of a leaf's largest element at 24 layers and seq 512, and its
+# gradients past the 1e-5 bound already at 2 layers and seq 256 (the
+# sLSTM's recurrent ``r``, summed over the tokens; PERF.md §6).  Its
+# parity case runs where that floor lies under the bounds, at half of
+# them on an H100: one super-block (an mLSTM and an sLSTM layer), seq 64
+# (the mLSTM's chunk cut with it from 256); at full depth (24 layers, seq
+# 256) its sharded steps alone must give finite losses, 1 step
+DIST_XLSTM = dict(arch="xlstm-350m", layers=1, seq=64, chunk=64)
+DIST_SHARED = dict(tp=dict(arch=VLM_ARCH, mesh=(1, 2), layers=2,
+                           vocab=8192),
                    moe=dict(arch="arctic-480b", mesh=(2, 1), layers=1,
-                            experts=8))
+                            experts=8),
+                   zamba2=dict(arch="zamba2-2.7b", mesh=(1, 2), layers=1,
+                               floor_k=4.0),
+                   xlstm=dict(DIST_XLSTM, mesh=(1, 2)),
+                   heads=dict(arch=VLM_ARCH, mesh=(1, 8), layers=1,
+                              vocab=8192, steps=1))
 DIST_SHARED_STEP = dict(batch=2, seq=512, steps=2)
+DIST_XLSTM_DEEP = dict(arch="xlstm-350m", mesh=(1, 2), seq=256, steps=1)
+# zamba2's fp32 floor lies above those bounds: its Mamba-2 per-head fp32
+# scalars (``a_log``, ``d_skip``, ``dt_bias``) take gradients summed over
+# every token with heavy cancellation, so any other fp32 order of the same
+# sums moves them past the 1e-5 bound, and AdamW's first update carries
+# that into the leaves, which start at 0.  So a figure of a leaf is held
+# at its bound or within ``floor_k`` = 4 times the world of one's own
+# fp32 floor for it (``selftest.beyond_floor``; a floor whose allowance
+# would reach a tenth of its leaf opens no way), as
+# ``tests/test_torch_tp_recurrent.py`` holds zamba2's smoke config; the
+# readings above the bound sat at most 2.5x their floor (PERF.md §6)
 # every card visible: the MoE on (2, 2) in fp32 against one card, 16
 # experts (so the specs shard them over "model") of arctic's width, each
 # rank 8 of them at half their hidden width; then arctic at its full
@@ -3300,6 +3345,13 @@ DIST_SHARED_STEP = dict(batch=2, seq=512, steps=2)
 DIST_MOE_MESH = dict(arch="arctic-480b", mesh=(2, 2), layers=1, experts=16)
 DIST_MOE_BIG = dict(arch="arctic-480b", mesh=(2, 2), layers=2, seq=1024,
                     batch=2, steps=3, warmup=1)
+# every card visible: xlstm at full width in fp32 on (1, 4) (one head a
+# rank) against one card, at DIST_XLSTM's depth and sequence,
+# then zamba2 at full width and depth (54 layers), bf16, on (1, 4): 20
+# Mamba-2 heads a rank
+DIST_RECURRENT_PARITY = dict(DIST_XLSTM, mesh=(1, 4))
+DIST_RECURRENT_BIG = dict(arch="zamba2-2.7b", mesh=(1, 4), seq=4096,
+                          batch=1, steps=3, warmup=1)
 
 
 def _fp32(cfg, **kw):
@@ -3308,35 +3360,63 @@ def _fp32(cfg, **kw):
                                compute_dtype="float32", **kw)
 
 
-def _parity_checked(outs, what):
+def _parity_checked(outs, what, floor_k=0.0):
+    """Each rank's ``selftest.sharded_step_parity`` record held at the
+    bounds (or, where the case ran the world of one's floor, within
+    ``floor_k`` times it: ``selftest.beyond_floor``), its first update
+    explained, its parameter bytes the specs' share; the figures, the
+    heads and leaf shapes of each rank."""
+    from repro_torch.distributed import selftest
+    bounds = dict(loss_rel_err=DIST_LOSS_RTOL,
+                  grad_rel_norm=DIST_GRAD_RTOL,
+                  grad_err_over_max=DIST_GRAD_MAX,
+                  leaf_rel_norm=DIST_LEAF_RTOL,
+                  leaf_err_over_max=DIST_LEAF_MAX)
     for o in outs:
-        check(o["loss_rel_err"] <= DIST_LOSS_RTOL and
-              o["worst_grad_rel_norm"] <= DIST_GRAD_RTOL and
-              o["worst_grad_err_over_max"] <= DIST_GRAD_MAX and
-              o["first_step_unexplained_over_max"] <= DIST_FIRST_STEP_MAX
-              and
-              o["worst_leaf_rel_norm"] <= DIST_LEAF_RTOL and
-              o["worst_leaf_err_over_max"] <= DIST_LEAF_MAX,
-              f"dist: {what}: loss {o['loss_rel_err']}, gradient "
-              f"{o['worst_grad_rel_norm']} / {o['worst_grad_err_over_max']}"
-              f" ({o['worst_grad_leaf']}), first step unexplained "
-              f"{o['first_step_unexplained_over_max']} "
-              f"({o['first_step_unexplained_leaf']}), leaf "
-              f"{o['worst_leaf_rel_norm']}"
-              f" / {o['worst_leaf_err_over_max']} ({o['worst_leaf']}) "
-              f"against the world of one")
+        beyond = selftest.beyond_floor(o, bounds, floor_k)
+        check(not beyond and o["first_step_unexplained_over_max"] <=
+              DIST_FIRST_STEP_MAX,
+              f"dist: {what}: beyond the bounds"
+              f"{' and %s x the floor' % floor_k if floor_k else ''}"
+              f" (figure, leaf, value, floor): {beyond[:5]}; first step "
+              f"unexplained {o['first_step_unexplained_over_max']} "
+              f"({o['first_step_unexplained_leaf']}) against the world "
+              f"of one")
     o = outs[0]
-    return {k: o[k] for k in ("mesh", "steps", "losses_single",
-                              "losses_sharded", "loss_rel_err",
-                              "worst_grad_rel_norm",
-                              "worst_grad_err_over_max", "worst_grad_leaf",
-                              "worst_leaf_rel_norm",
-                              "worst_leaf_err_over_max", "worst_leaf",
-                              "first_step_unexplained_over_max",
-                              "first_step_unexplained_leaf",
-                              "first_step_leaf_rel_norm", "param_bytes", "spec_param_bytes",
-                              "leaf_gathers", "coll_bytes",
-                              "coll_bytes_by_axis", "moe_width_forms")}
+    out = {k: o[k] for k in ("mesh", "steps", "losses_single",
+                             "losses_sharded", "loss_rel_err",
+                             "worst_grad_rel_norm",
+                             "worst_grad_err_over_max", "worst_grad_leaf",
+                             "worst_leaf_rel_norm",
+                             "worst_leaf_err_over_max", "worst_leaf",
+                             "first_step_unexplained_over_max",
+                             "first_step_unexplained_leaf",
+                             "first_step_leaf_rel_norm", "param_bytes",
+                             "spec_param_bytes", "leaf_gathers",
+                             "coll_bytes", "coll_bytes_by_axis",
+                             "moe_width_forms")}
+    _shares_checked(outs, what)
+    # the copies of leaves held alike each rank held to rank 0's, bit for
+    # bit; each rank's heads and the shapes of its leaves, by block kind
+    out["replica_checks_by_rank"] = [r["replica_checks"] for r in outs]
+    out["heads_by_rank"] = [r["heads"] for r in outs]
+    if "floors" in o:       # each figure's worst leaf and worst floor
+        # over its bound, and the figures above their bound with floors
+        out["over_bound"] = {f: max(o["figures"][f].values()) / bounds[f]
+                             for f in bounds}
+        out["floor_over_bound"] = {f: max(o["floors"][f].values()) /
+                                   bounds[f] for f in bounds}
+        out["at_floor"] = {f: sorted(
+            ((n, v, o["floors"][f][n]) for n, v in o["figures"][f].items()
+             if v > bounds[f]), key=lambda t: -t[1])[:8] for f in bounds}
+    return out
+
+
+def _shares_checked(outs, what):
+    for r in outs:
+        check(r["param_bytes"] == r["spec_param_bytes"],
+              f"dist: {what}: {r['param_bytes']} parameter bytes, the "
+              f"specs' share is {r['spec_param_bytes']}")
 
 
 def _expert_shapes_checked(outs, cfg, mesh, what):
@@ -3358,37 +3438,73 @@ def _expert_shapes_checked(outs, cfg, mesh, what):
 
 
 def dist_shared_card(device_type="cuda"):
-    """Two gloo ranks share the one card: ``selftest.sharded_step_parity``
-    of a (1, 2) tensor-parallel mesh and a (2, 1) data-parallel MoE mesh
-    against the world of one, in fp32."""
+    """Gloo ranks share the one card: ``selftest.sharded_step_parity`` of
+    each mesh of ``DIST_SHARED`` (a (1, 2) tensor-parallel mesh, a (2, 1)
+    data-parallel MoE mesh, the recurrent blocks and an uneven head split
+    over "model") against the world of one, in fp32; then
+    ``DIST_XLSTM_DEEP``'s sharded steps alone (``selftest.sharded_losses``):
+    finite losses, every rank's alike."""
     from repro_torch.configs import get_config
     from repro_torch.distributed import selftest
     from repro_torch.distributed.launch import spawn
     out = {}
     st = DIST_SHARED_STEP
     for name, run in DIST_SHARED.items():
-        extra = dict(n_experts=run["experts"]) if "experts" in run else {}
-        cfg = _fp32(get_config(run["arch"]), n_super=run["layers"], **extra)
+        extra = _case_cuts(run)
+        cfg = _fp32(get_config(run["arch"]), **extra)
         t0 = time.perf_counter()
-        outs = spawn(selftest.sharded_step_parity, 2,
-                     (cfg, run["mesh"], st["batch"], st["seq"],
-                      st["steps"]), device_type=device_type,
-                     backend="gloo", timeout=900.0)
-        out[name] = dict(arch=run["arch"], layers=run["layers"], **extra,
-                         **_parity_checked(outs, f"{name} {run['mesh']}"),
+        outs = spawn(selftest.sharded_step_parity,
+                     run["mesh"][0] * run["mesh"][1],
+                     (cfg, run["mesh"], st["batch"],
+                      run.get("seq", st["seq"]), run.get("steps", st["steps"]),
+                      1e-3, "floor_k" in run),
+                     device_type=device_type, backend="gloo", timeout=900.0)
+        out[name] = dict(arch=run["arch"], **extra,
+                         layers=cfg.n_layers, seq=run.get("seq", st["seq"]),
+                         **_parity_checked(outs, f"{name} {run['mesh']}",
+                                           run.get("floor_k", 0.0)),
                          seconds=time.perf_counter() - t0)
         if "experts" in run:
             out[name]["expert_shapes"] = _expert_shapes_checked(
                 outs, cfg, run["mesh"], f"{name} {run['mesh']}")
+    run = DIST_XLSTM_DEEP
+    cfg = _fp32(get_config(run["arch"]))
+    t0 = time.perf_counter()
+    outs = spawn(selftest.sharded_losses, run["mesh"][0] * run["mesh"][1],
+                 (cfg, run["mesh"], st["batch"], run["seq"], run["steps"]),
+                 device_type=device_type, backend="gloo", timeout=900.0)
+    what = f"{run['arch']} {run['mesh']} at full depth"
+    check(all(math.isfinite(x) for x in outs[0]["losses"]) and
+          all(o["losses"] == outs[0]["losses"] for o in outs),
+          f"dist: {what}: losses {[o['losses'] for o in outs]}")
+    _shares_checked(outs, what)
+    out["xlstm_deep"] = dict(arch=run["arch"], layers=cfg.n_layers,
+                             mesh=list(run["mesh"]), seq=run["seq"],
+                             losses=outs[0]["losses"],
+                             param_bytes=outs[0]["param_bytes"],
+                             heads_by_rank=[o["heads"] for o in outs],
+                             seconds=time.perf_counter() - t0)
     return out
+
+
+def _case_cuts(run):
+    """A case's cuts of its config: experts, super-blocks, vocabulary,
+    the SSM's chunk."""
+    return {k: run[v] for k, v in (("n_experts", "experts"),
+                                   ("n_super", "layers"),
+                                   ("vocab_size", "vocab"),
+                                   ("ssm_chunk", "chunk")) if v in run}
 
 
 def dist_every_card(device, device_type="cuda"):
     """Four NCCL ranks, one a card: the 8-layer qwen2-vl in fp32 on each
     mesh of ``DIST_MESHES`` against the un-meshed run (every step's
-    loss), then 40-layer mistral-nemo-12b on ``DIST_BIG["mesh"]`` for a
-    few steps: each rank's peak memory, the step time, the collectives'
-    bytes a step by kind, the bytes held beside the specs' share."""
+    loss); the MoE on ``DIST_MOE_MESH`` against the world of one and
+    arctic at full width (:func:`_moe_big`); the recurrent blocks
+    (:func:`_recurrent_every_card`); then 40-layer mistral-nemo-12b on
+    ``DIST_BIG["mesh"]`` for a few steps (:func:`_mesh_train`): each
+    rank's peak memory, the step time, the collectives' bytes a step by
+    kind, the bytes held beside the specs' share."""
     from repro_torch.configs import get_config
     from repro_torch.distributed import selftest
     from repro_torch.distributed.launch import spawn
@@ -3436,52 +3552,28 @@ def dist_every_card(device, device_type="cuda"):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     out["moe_big"] = _moe_big(device_type)
-    big = DIST_BIG
-    kw = dict(steps=big["steps"], batch=big["batch"], seq=big["seq"],
-              log_every=1)
-    t0 = time.perf_counter()
-    reps = spawn(selftest.mesh_train_report, 4,
-                 (get_config(LM_ARCH), big["mesh"], kw),
-                 device_type=device_type, timeout=900.0)
-    for r in reps:
-        check(all(math.isfinite(x) for x in r["losses"]) and
-              r["losses"] == reps[0]["losses"],
-              f"dist: {LM_ARCH} on {big['mesh']}: losses {r['losses']}")
-    w = big["warmup"]
-    out["big"] = dict(
-        arch=LM_ARCH, layers=get_config(LM_ARCH).n_layers,
-        mesh=list(big["mesh"]), seq=big["seq"], batch=big["batch"],
-        dtype="bfloat16", moments="float32", remat="full",
-        losses=reps[0]["losses"],
-        ms_per_step=[sum(r["step_s"][w:]) / len(r["step_s"][w:]) * 1e3
-                     for r in reps],
-        peak_bytes=[r["peak_bytes"] for r in reps],
-        param_bytes=[r["param_bytes"] for r in reps],
-        param_bytes_by_specs=reps[0]["param_bytes_by_specs"],
-        moment_bytes=[r["moment_bytes"] for r in reps],
-        moment_bytes_by_specs=reps[0]["moment_bytes_by_specs"],
-        coll_bytes_per_step=reps[0]["coll_bytes_per_step"],
-        coll_calls_per_step=reps[0]["coll_calls_per_step"],
-        leaf_gathers=reps[0]["leaf_gathers"],
-        seconds=time.perf_counter() - t0)
+    if device_type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    out["recurrent"] = _recurrent_every_card(device_type)
+    if device_type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    out["big"] = _mesh_train(get_config(LM_ARCH), dict(arch=LM_ARCH,
+                                                       **DIST_BIG),
+                             device_type)
     return out
 
 
-def _moe_big(device_type):
-    """``DIST_MOE_BIG``: arctic at its full width on (2, 2), bf16, a few
-    steps of ``run_train``: the losses (finite, every rank's alike), the
-    ms a step after the warm-up, each rank's peak memory, its expert
-    leaves' shapes, the bytes held beside the specs' share and the
+def _mesh_train(cfg, run, device_type):
+    """A few steps of ``run_train`` of ``cfg`` on ``run["mesh"]``, one
+    NCCL rank a card: the losses (finite, every rank's alike), the ms a
+    step after ``run["warmup"]``, each rank's peak memory, the bytes held
+    beside the specs' share (equal, or the check fails) and the
     collectives' bytes a step by kind and axis."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
     from repro_torch.distributed import selftest
     from repro_torch.distributed.launch import spawn
-    from repro_torch.models import sharding
     from repro_torch.optim.optimizer import moment_dtype_for
-    run = DIST_MOE_BIG
-    cfg = dataclasses.replace(get_config(run["arch"]), n_super=run["layers"])
     kw = dict(steps=run["steps"], batch=run["batch"], seq=run["seq"],
               log_every=1)
     t0 = time.perf_counter()
@@ -3495,15 +3587,10 @@ def _moe_big(device_type):
               f"dist: {run['arch']} on {run['mesh']}: {r['param_bytes']} "
               f"parameter bytes, the specs say {r['param_bytes_by_specs']}")
     w = run["warmup"]
-    e = cfg.n_experts // (run["mesh"][1] if sharding.mdl(cfg.n_experts)
-                          else 1)
-    f = cfg.moe_d_ff // run["mesh"][0]
     return dict(
-        arch=run["arch"], layers=run["layers"], mesh=list(run["mesh"]),
-        seq=run["seq"], batch=run["batch"], dtype="bfloat16",
+        arch=run["arch"], layers=cfg.n_layers, mesh=list(run["mesh"]),
+        seq=run["seq"], batch=run["batch"], dtype=cfg.param_dtype,
         moments=moment_dtype_for(cfg), remat=cfg.remat,
-        expert_w1=[e, cfg.d_model, f],
-        expert_bytes_per_layer=3 * e * cfg.d_model * f * 2,
         losses=reps[0]["losses"],
         ms_per_step=[sum(r["step_s"][w:]) / len(r["step_s"][w:]) * 1e3
                      for r in reps],
@@ -3513,9 +3600,58 @@ def _moe_big(device_type):
         moment_bytes=[r["moment_bytes"] for r in reps],
         moment_bytes_by_specs=reps[0]["moment_bytes_by_specs"],
         coll_bytes_per_step=reps[0]["coll_bytes_per_step"],
+        coll_calls_per_step=reps[0]["coll_calls_per_step"],
         coll_bytes_by_axis_per_step=reps[0]["coll_bytes_by_axis_per_step"],
         leaf_gathers=reps[0]["leaf_gathers"],
         seconds=time.perf_counter() - t0)
+
+
+def _moe_big(device_type):
+    """``DIST_MOE_BIG``: arctic at its full width on (2, 2), bf16
+    (:func:`_mesh_train`), with its expert leaves' shapes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import sharding
+    run = DIST_MOE_BIG
+    cfg = dataclasses.replace(get_config(run["arch"]), n_super=run["layers"])
+    e = cfg.n_experts // (run["mesh"][1] if sharding.mdl(cfg.n_experts)
+                          else 1)
+    f = cfg.moe_d_ff // run["mesh"][0]
+    return dict(**_mesh_train(cfg, run, device_type),
+                expert_w1=[e, cfg.d_model, f],
+                expert_bytes_per_layer=3 * e * cfg.d_model * f * 2)
+
+
+def _recurrent_every_card(device_type):
+    """The recurrent blocks split by heads over "model", one NCCL rank a
+    card: xlstm at full width in fp32 on ``DIST_RECURRENT_PARITY``'s
+    mesh, depth and sequence against the world of one (1 head a rank),
+    then zamba2 at full width and depth, bf16, on
+    ``DIST_RECURRENT_BIG["mesh"]`` (:func:`_mesh_train`: 20 Mamba-2 heads
+    and 8 attention heads a rank)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import selftest
+    from repro_torch.distributed.launch import spawn
+    run, st = DIST_RECURRENT_PARITY, DIST_SHARED_STEP
+    cfg = _fp32(get_config(run["arch"]), **_case_cuts(run))
+    t0 = time.perf_counter()
+    outs = spawn(selftest.sharded_step_parity, 4,
+                 (cfg, run["mesh"], st["batch"], run["seq"], st["steps"]),
+                 device_type=device_type, timeout=900.0)
+    out = dict(parity=dict(arch=run["arch"], layers=cfg.n_layers,
+                           seq=run["seq"],
+                           **_parity_checked(outs, f"{run['arch']} "
+                                             f"{run['mesh']}"),
+                           seconds=time.perf_counter() - t0))
+    if device_type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    run = DIST_RECURRENT_BIG
+    out["big"] = _mesh_train(get_config(run["arch"]), run, device_type)
+    return out
 
 
 def dist_phase(device):

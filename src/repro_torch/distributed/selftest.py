@@ -118,7 +118,7 @@ def _smoke_fp32(arch: str):
 
 def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
                         seq: int = 32, steps: int = 1,
-                        lr: float = 1e-3) -> Dict:
+                        lr: float = 1e-3, floor: bool = False) -> Dict:
     """``steps`` train steps of ``cfg`` (weights from seed 0) on one batch
     drawn with numpy (with a vision model's ``frontend`` and an
     encoder-decoder's ``enc_embeds``), by ``build_train_step`` on this
@@ -134,9 +134,28 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
     beside the specs' share (every leaf's whole bytes over the "model"
     size where its spec names "model" and over the "data" size where it
     names "data"), the leaves whose bytes are not that share, the shapes
-    of the experts' leaves the rank holds, the leaves the sharded steps
-    gathered whole, by axis, and the collectives' operand bytes of the
-    sharded steps by kind and axis (``sharding.stats``)."""
+    of the experts' leaves the rank holds, the heads it computes and its
+    leaves' shapes in the first module of each kind (:func:`_heads_report`),
+    the leaves the sharded steps gathered whole, by axis, and the
+    collectives' operand bytes of the sharded steps by kind and axis
+    (``sharding.stats``).  Every figure of every leaf is under
+    ``figures`` (:data:`FIGURES`).  The world of one runs, and is
+    compared, on rank 0 alone, which broadcasts its figures; every other
+    rank holds each copy of a leaf that ranks hold alike (a norm, a
+    leaf whole over "model" or over "data") to rank 0's, or to the lowest
+    rank's holding the same slice, by the CRC-32 of their bytes: the
+    first step's gradients and the leaves after every step
+    (:func:`_replicas_checked`, ``replica_checks`` the copies it
+    compared; a copy that differs raises on every rank).
+
+    ``floor``: also the world of one's own fp32 floor, leaf by leaf: its
+    run twice more with the embedding table one ulp up and one ulp down
+    (every activation then rounds otherwise, as the sharded run's
+    reordered sums make it do), the larger of the two runs' differences
+    from the first, in each figure, under ``floors`` (:func:`beyond_floor`
+    reads both)."""
+    import torch.distributed as dist
+
     from ..launch.mesh import make_test_mesh
     from ..launch.steps import (build_sharded_train_step, build_train_step,
                                 loss_and_grads, mesh_places)
@@ -148,21 +167,22 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
     ax = sharding.mesh_axis(mesh, "model")
     dax = sharding.mesh_axis(mesh, "data")
     wax = sharding.width_axis_of(mesh)
-    rng = np.random.default_rng(2)
-    data = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                             (batch, seq))).to(dev)
-            for k in ("tokens", "labels")}
-    extra = {"vision": ("frontend", cfg.n_frontend_tokens),
-             "audio": ("enc_embeds", seq)}.get(cfg.frontend)
-    if extra is not None:
-        data[extra[0]] = torch.from_numpy(rng.standard_normal(
-            (batch, extra[1], cfg.d_model)).astype(np.float32)).to(dev)
+    data = _batch(cfg, batch, seq, dev)
     ocfg = opt.OptConfig(lr=lr, warmup_steps=1, total_steps=10)
-    runs = []
-    for sharded in (False, True):
+    # the world of one runs, and is compared, on rank 0 alone: its runs
+    # take no collective; the other ranks' copies are held to rank 0's
+    judge = dist.get_rank() == 0
+    runs, nudged, first, k_one, checks = [], [], None, None, 0
+    kinds = ("one",) + ((math.inf, -math.inf) if floor else ())
+    for kind in (kinds if judge else ()) + ("sharded",):
+        sharded = kind == "sharded"
         model = Model(cfg, device=dev,
                       **(mesh_places(mesh) if sharded else {}),
                       generator=torch.Generator(device=dev).manual_seed(0))
+        if not isinstance(kind, str):       # one ulp toward +-inf
+            with torch.no_grad():
+                model.embed.copy_(torch.nextafter(
+                    model.embed, torch.tensor(kind, device=dev)))
         model.requires_grad_(True)
         params = dict(model.named_parameters())
         layout = model.layout()
@@ -175,9 +195,10 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
             grads = {n: (g.float() if layout[n].width_dim is not None else
                          sharding.all_reduce(g.float(), dax)) / dax.size
                      for n, g in grads.items()}
+            checks += _replicas_checked(grads, layout, ax, dax, "gradients")
         else:
             _, grads = loss_and_grads(model, data)
-        grads = _whole(grads, layout, ax if sharded else None, dax)
+        grads = _whole(grads, layout, ax if sharded else None, dax, judge)
         state = opt.init(params, ocfg)
         step = build_sharded_train_step(model, ocfg, state, mesh) \
             if sharded else build_train_step(model, ocfg, state)
@@ -191,30 +212,25 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
             torch.zeros((), dtype=torch.int32), {}, {}),
             out["grad_norm"].float().cpu(), ocfg)
         if sharded:
-            first = _first_step(first, params, layout, ax, runs[0][1],
-                                grads, (k_one, k), ocfg, dax=dax)
-        else:
+            checks += _replicas_checked(params, layout, ax, dax, "step 1")
+            first = _first_step(first, params, layout, ax,
+                                runs[0][1] if judge else None, grads,
+                                (k_one, k), ocfg, dax=dax)
+        elif kind == "one":
             first, k_one = _whole({n: p.detach() for n, p in
                                    params.items()}, layout, None), k
         sharding.stats.reset()                  # comparison's gathers
-        losses += [float(step(data)["loss"]) for _ in range(steps - 1)]
+        for i in range(2, steps + 1):
+            losses.append(float(step(data)["loss"]))
+            if sharded:
+                checks += _replicas_checked(params, layout, ax, dax,
+                                            f"step {i}")
         coll = _added(step_one, sharding.stats.as_dict())
         final = _whole({n: p.detach() for n, p in params.items()}, layout,
-                       ax if sharded else None, dax)
+                       ax if sharded else None, dax, judge)
         if sharded:
-            held, share, off = 0, 0.0, []
-            for n, p in params.items():
-                whole = final[n].numel() * p.element_size()
-                spec = layout[n].spec
-                want = whole / (ax.size if sharding.model_dim(spec)
-                                is not None else 1) / (
-                    dax.size if sharding.data_dim(spec) is not None else 1)
-                have = p.numel() * p.element_size()
-                held, share = held + have, share + want
-                if have != want:
-                    off.append(n)
-            report = dict(param_bytes=held, spec_param_bytes=share,
-                          not_the_share=off,
+            report = dict(**_held(params, layout, ax, dax),
+                          replica_checks=checks,
                           leaf_gathers=coll["leaf_gathers"],
                           expert_shapes={n: list(p.shape) for n, p in
                                          params.items() if ".moe.w" in n
@@ -222,20 +238,200 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
                           coll_bytes=coll["bytes"],
                           moe_width_forms=dict(moe.width_forms),
                           coll_bytes_by_axis=coll["by_axis"],
-                          gathered_at_step=[n for n in params if
-                                            layout[n].gather == "step"])
-        runs.append((losses, grads, final))
+                          heads=_heads_report(model, params))
+        (runs if isinstance(kind, str) else nudged).append(
+            (losses, grads, final))
         del model, step, state
-    (l1, g1, p1), (l2, g2, p2) = runs
-    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(l1, l2))
-    gmax, gleaf, gnorm = _worst(g1, g2)
-    worst, leaf, worst_norm = _worst(p1, p2)
-    return dict(mesh=list(shape), steps=steps, losses_single=l1,
-                losses_sharded=l2, loss_rel_err=loss_rel,
-                worst_grad_err_over_max=gmax, worst_grad_leaf=gleaf,
-                worst_grad_rel_norm=gnorm,
-                worst_leaf_err_over_max=worst, worst_leaf=leaf,
-                worst_leaf_rel_norm=worst_norm, **first, **report)
+    figures = [_compared(runs, nudged, first) if judge else None]
+    dist.broadcast_object_list(figures, src=0)
+    return dict(mesh=list(shape), steps=steps, **figures[0], **report)
+
+
+def sharded_losses(cfg, shape: Tuple[int, int], batch: int = 4,
+                   seq: int = 32, steps: int = 1,
+                   lr: float = 1e-3) -> Dict:
+    """The sharded run of :func:`sharded_step_parity` alone (the same
+    weights, batch and steps, no world of one: for a model too deep for
+    two fp32 orders of its sums to agree): its losses, this rank's
+    parameter bytes beside the specs' share, and its heads."""
+    from ..launch.mesh import make_test_mesh
+    from ..launch.steps import build_sharded_train_step, mesh_places
+    from ..models import sharding
+    from ..models.model import Model
+    from ..optim import optimizer as opt
+    dev = _device()
+    mesh = make_test_mesh(shape, ("data", "model"))
+    data = _batch(cfg, batch, seq, dev)
+    ocfg = opt.OptConfig(lr=lr, warmup_steps=1, total_steps=10)
+    model = Model(cfg, device=dev, **mesh_places(mesh),
+                  generator=torch.Generator(device=dev).manual_seed(0))
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    step = build_sharded_train_step(model, ocfg, opt.init(params, ocfg),
+                                    mesh)
+    losses = [float(step(data)["loss"]) for _ in range(steps)]
+    return dict(mesh=list(shape), steps=steps, losses=losses,
+                **_held(params, model.layout(),
+                        sharding.mesh_axis(mesh, "model"),
+                        sharding.mesh_axis(mesh, "data")),
+                heads=_heads_report(model, params))
+
+
+def _batch(cfg, batch: int, seq: int, dev) -> Dict[str, torch.Tensor]:
+    """The parity runs' batch, drawn with numpy from seed 2: tokens and
+    labels, with a vision model's ``frontend`` and an encoder-decoder's
+    ``enc_embeds``."""
+    rng = np.random.default_rng(2)
+    data = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (batch, seq))).to(dev)
+            for k in ("tokens", "labels")}
+    extra = {"vision": ("frontend", cfg.n_frontend_tokens),
+             "audio": ("enc_embeds", seq)}.get(cfg.frontend)
+    if extra is not None:
+        data[extra[0]] = torch.from_numpy(rng.standard_normal(
+            (batch, extra[1], cfg.d_model)).astype(np.float32)).to(dev)
+    return data
+
+
+def _held(params, layout, ax, dax) -> Dict:
+    """The parameter bytes this rank holds beside the specs' share (each
+    leaf's whole bytes over the "model" size where its spec names
+    "model" and over the "data" size where it names "data"), and the
+    leaves whose bytes are not that share."""
+    from ..models import sharding
+    held, share, off = 0, 0.0, []
+    for n, p in params.items():
+        have = p.numel() * p.element_size()
+        leaf, spec = layout[n], layout[n].spec
+        whole = have * (ax.size if leaf.shard_dim is not None else 1) * (
+            dax.size if leaf.width_dim is not None else 1)
+        want = whole / (ax.size if sharding.model_dim(spec) is not None
+                        else 1) / (
+            dax.size if sharding.data_dim(spec) is not None else 1)
+        held, share = held + have, share + want
+        if have != want:
+            off.append(n)
+    return dict(param_bytes=held, spec_param_bytes=share, not_the_share=off)
+
+
+def _replicas_checked(tensors: Dict[str, torch.Tensor], layout, ax, dax,
+                      what: str) -> int:
+    """Each of ``tensors`` (this rank's leaves or gradients, by name) that
+    ranks hold alike, whole over "model" or over "data" (all but the
+    experts' width slices), against the copy of the lowest rank holding
+    the same slice (rank 0's where it is whole everywhere), by a digest
+    of its bytes.  Every rank reads every rank's digests, so
+    a copy that differs raises on every rank, naming the ranks and
+    leaves.  The digest is the CRC-32 of the copy's bytes, which no change
+    within one 32-bit word of it leaves alike.  Returns how many of this
+    rank's copies were compared."""
+    import zlib
+
+    import torch.distributed as dist
+    mine = {}
+    for n, t in tensors.items():
+        leaf = layout[n]
+        if (leaf.shard_dim is None and ax.size > 1) or (
+                leaf.width_dim is None and dax.size > 1):
+            part = (ax.rank if leaf.shard_dim is not None else None,
+                    dax.rank if leaf.width_dim is not None else None)
+            raw = t.detach().contiguous().reshape(-1).view(
+                torch.uint8).cpu().numpy()
+            mine[n] = (part, zlib.crc32(raw.data))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    lowest, differ, compared = {}, [], 0
+    for r, got in enumerate(every):
+        for n, (part, digest) in got.items():
+            if (n, part) not in lowest:
+                lowest[n, part] = digest
+                continue
+            compared += r == dist.get_rank()
+            if digest != lowest[n, part]:
+                differ.append((r, n))
+    if differ:
+        raise AssertionError(
+            f"{what}: these ranks' copies of leaves held alike differ from "
+            f"the lowest rank's (rank, leaf): {differ[:8]}")
+    return compared
+
+
+def _compared(runs, nudged, first) -> Dict:
+    """The world of one's run and the sharded one's, each ``(losses,
+    gradients, leaves)``, compared: every figure of every leaf, and the
+    worst of each with its leaf; with ``nudged`` (the world of one's runs
+    one ulp apart) their floors."""
+    figures = _figures(*runs)
+    out = dict(losses_single=runs[0][0], losses_sharded=runs[1][0],
+               loss_rel_err=figures["loss_rel_err"]["loss"],
+               figures=figures, **first)
+    for kind, named in (("grad", "worst_grad_leaf"),
+                        ("leaf", "worst_leaf")):
+        over_max = figures[f"{kind}_err_over_max"]
+        worst = max(over_max, key=over_max.get)
+        out.update({f"worst_{kind}_err_over_max": over_max[worst],
+                    named: worst,
+                    f"worst_{kind}_rel_norm": max(
+                        figures[f"{kind}_rel_norm"].values())})
+    if nudged:
+        each = [_figures(runs[0], run) for run in nudged]
+        out["floors"] = {f: {n: max(v[f][n] for v in each)
+                             for n in each[0][f]} for f in FIGURES}
+    return out
+
+
+def block_heads(cfg, kind: str, leaves: Dict[str, np.ndarray],
+                x: np.ndarray, decode_steps: int = 0) -> Dict:
+    """One block of ``kind`` (``models.model.BLOCKS``) on this rank's
+    shards of a "model" group of every rank (each rank calls it), its
+    leaves the whole numpy ``leaves`` (by parameter name) sliced as the
+    build slices them: the heads it computes, their outputs on ``x``
+    [B,S,d] before the row-parallel product (``head_outputs``), the
+    block's output (summed over "model"), and its ``decode`` outputs on
+    the first ``decode_steps`` positions of ``x``, all as numpy."""
+    import torch.distributed as dist
+
+    from ..launch.mesh import make_test_mesh
+    from ..models import sharding
+    from ..models.layers import dtype_of
+    from ..models.model import BLOCKS
+    world, rank = dist.get_world_size(), dist.get_rank()
+    dev = _device()
+    with sharding.build_shards(rank, world), torch.no_grad():
+        blk = BLOCKS[kind](cfg, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        specs = blk.param_specs()
+        for n, p in blk.named_parameters():
+            p.copy_(sharding.keep_shard(torch.from_numpy(
+                np.asarray(leaves[n])).to(dev, p.dtype), specs[n]))
+    ax = sharding.mesh_axis(make_test_mesh((world,), ("model",)), "model")
+    tx = torch.from_numpy(x).to(dev, dtype_of(cfg.compute_dtype))
+    with torch.inference_mode(), sharding.parallel(model=ax):
+        heads = blk.head_outputs(tx)
+        y = blk(tx)[0]
+        cache = blk.init_cache(x.shape[0], max(decode_steps, 1))
+        steps = [blk.decode(cache, tx[:, t:t + 1], t)
+                 for t in range(decode_steps)]
+    got = {n: mod.heads for n, mod in blk.named_modules()
+           if isinstance(getattr(mod, "heads", None), tuple)}
+    return dict(heads={n or kind: list(h) for n, h in got.items()},
+                head_outputs=heads.float().cpu().numpy(),
+                out=y.float().cpu().numpy(),
+                decode=[t.float().cpu().numpy() for t in steps])
+
+
+def _heads_report(model, params) -> Dict:
+    """The heads this rank computes in the first module of each kind
+    that splits them (``Model.computed_heads``), and the shapes of that
+    module's leaves as the rank holds them."""
+    out = {}
+    for name, (lo, hi) in model.computed_heads().items():
+        kind = type(model.get_submodule(name)).__name__
+        if kind not in out:
+            out[kind] = dict(module=name, heads=[lo, hi], leaves={
+                n[len(name) + 1:]: list(p.shape) for n, p in params.items()
+                if n.startswith(name + ".")})
+    return out
 
 
 def _added(a: Dict, b: Dict) -> Dict:
@@ -246,17 +442,21 @@ def _added(a: Dict, b: Dict) -> Dict:
     return {k: _added(a.get(k, 0), b.get(k, 0)) for k in {*a, *b}}
 
 
-def _whole(leaves: Dict[str, torch.Tensor], layout, ax, dax=None) -> Dict:
+def _whole(leaves: Dict[str, torch.Tensor], layout, ax, dax=None,
+           keep: bool = True) -> Dict:
     """fp32 host copies of ``leaves`` (a model's parameters or gradients
     by name: compared on the host, beside the models on the device; a
     copy even of a host fp32 leaf, which the steps update in place), each
     gathered whole over "model" (``ax``) and "data" (``dax``) where
     ``layout`` holds it sliced.  Plain collectives: DTensor's functional
-    ones crash under gloo on CUDA tensors (two ranks on one card)."""
+    ones crash under gloo on CUDA tensors (two ranks on one card).  A
+    rank that does not ``keep`` them (one that compares nothing) only
+    joins the gathers, and returns ``{}``."""
     out = {}
     for n, t in leaves.items():
-        out[n] = _gathered(t, layout[n], ax, dax).detach().to(
-            "cpu", torch.float32, copy=True)
+        t = _gathered(t, layout[n], ax, dax)
+        if keep:
+            out[n] = t.detach().to("cpu", torch.float32, copy=True)
     return out
 
 
@@ -285,13 +485,16 @@ def _first_step(one: Dict[str, torch.Tensor], params, layout, ax,
     left is rounding, or a wrong sharded update.  Returns the worst
     ``|difference - prediction|`` over its leaf's largest element (the
     leaf named), and the worst difference itself over its leaf's norm.
-    The host copies go to the parameters' device a chunk at a time."""
+    The host copies go to the parameters' device a chunk at a time.  A
+    rank without ``one`` only joins the gathers, and returns ``{}``."""
     from ..optim import optimizer as opt
     worst, leaf, gap = 0.0, None, 0.0
     dev = next(iter(params.values())).device
-    for n, a in one.items():
+    for n in params:
         b = _gathered(params[n].detach(), layout[n], ax, dax)
-        b, a = b.float().reshape(-1), a.reshape(-1)
+        if one is None:
+            continue
+        b, a = b.float().reshape(-1), one[n].reshape(-1)
         err = d_sq = a_sq = 0.0
         for i in range(0, a.numel(), chunk):
             part = slice(i, i + chunk)
@@ -310,24 +513,59 @@ def _first_step(one: Dict[str, torch.Tensor], params, layout, ax,
         if err > worst:
             worst, leaf = err, n
         gap = max(gap, math.sqrt(d_sq) / max(math.sqrt(a_sq), 1e-30))
+    if one is None:
+        return {}
     return dict(first_step_unexplained_over_max=worst,
                 first_step_unexplained_leaf=leaf,
                 first_step_leaf_rel_norm=gap)
 
 
-def _worst(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]):
-    """The worst over leaves of ``|a - b|``'s largest element over ``a``'s
-    largest, its leaf, and the worst ``‖a - b‖ / ‖a‖``."""
-    worst, leaf, worst_norm = 0.0, None, 0.0
-    for n in a:
-        err = float((a[n] - b[n]).abs().max()) / \
-            max(float(a[n].abs().max()), 1e-30)
-        if err > worst:
-            worst, leaf = err, n
-        worst_norm = max(worst_norm, float(
+#: the figures of a parity run against the world of one: the worst
+#: step's loss, relative; the first step's gradients and the last step's
+#: leaves, leaf by leaf, each relative in norm and over the leaf's
+#: largest element
+FIGURES = ("loss_rel_err", "grad_rel_norm", "grad_err_over_max",
+           "leaf_rel_norm", "leaf_err_over_max")
+
+
+def _figures(one, other) -> Dict[str, Dict[str, float]]:
+    """:data:`FIGURES` of a run ``other`` against ``one``, each ``(losses,
+    gradients, leaves)``; the loss's under the name ``loss``."""
+    out = dict(loss_rel_err=dict(loss=max(
+        abs(a - b) / abs(a) for a, b in zip(one[0], other[0]))))
+    for kind, a, b in (("grad", one[1], other[1]),
+                       ("leaf", one[2], other[2])):
+        out[f"{kind}_rel_norm"] = {n: float(
             torch.linalg.vector_norm(a[n] - b[n]) /
-            max(float(torch.linalg.vector_norm(a[n])), 1e-30)))
-    return worst, leaf, worst_norm
+            max(float(torch.linalg.vector_norm(a[n])), 1e-30)) for n in a}
+        out[f"{kind}_err_over_max"] = {n: float(
+            (a[n] - b[n]).abs().max() / max(float(a[n].abs().max()), 1e-30))
+            for n in a}
+    return out
+
+
+#: a floor whose ``k`` times reaches this share of its leaf's scale
+#: opens no way past the bound (:func:`beyond_floor`)
+FLOOR_CAP = 0.1
+
+
+def beyond_floor(out: Dict, bounds: Dict[str, float], k: float) -> list:
+    """The figures of a :func:`sharded_step_parity` record ``out`` beyond
+    their bound (``bounds``, by figure), ``(figure, leaf, value,
+    floor)``.  Where the record holds the world of one's own fp32 floor
+    (``floor=True``), a figure within ``k`` times its floor passes too,
+    unless ``k`` times that floor reaches :data:`FLOOR_CAP` of its leaf's
+    scale (its norm, or its largest element; the loss): a floor that
+    large would pass a wrong leaf, so that leaf is held at its bound.  A
+    record without floors is held at the bounds alone."""
+    floors = out.get("floors", {})
+    beyond = []
+    for f in FIGURES:
+        for n, v in out["figures"][f].items():
+            floor = floors.get(f, {}).get(n, 0.0)
+            if v > bounds[f] and not v <= k * floor < FLOOR_CAP:
+                beyond.append((f, n, v, floor))
+    return beyond
 
 
 def mesh_train_report(cfg, shape: Tuple[int, int], kwargs: Dict) -> Dict:

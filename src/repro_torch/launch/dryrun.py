@@ -16,8 +16,13 @@ as one rank of the production mesh would:
   (``torch.testing._internal.distributed.fake_pg``) in this process
   gives ``launch.mesh.make_production_mesh()`` its (16, 16) ("data",
   "model") or (2, 16, 16) mesh; the fake collectives move nothing;
-* rank 0's model is built on ``meta`` on its shards (``Model(cfg,
-  device="meta", tp=(0, 16), dp=(0, 16))``: its "model" shards and its
+* the rank is the last of the first "model" group (rank 15: "model"
+  coordinate 15, every other 0), the busiest: the heads split unevenly
+  (``blocks.heads_split``) and the last rank computes ``⌈h/16⌉`` of
+  every block's ``h``, where the first may compute ``⌊h/16⌋`` or none
+  (xlstm's 4 heads); every other count is alike on every rank;
+* its model is built on ``meta`` on its shards (``Model(cfg,
+  device="meta", tp=(15, 16), dp=(0, 16))``: its "model" shards and its
   slice of the experts' hidden width over "data"): every weight, moment
   and activation has a shape and a dtype and no storage;
 * a train cell runs ``steps.build_sharded_train_step`` on the global
@@ -114,15 +119,15 @@ class ByteCounter:
 
 
 @contextlib.contextmanager
-def fake_world(world: int):
-    """A fake process group of ``world`` ranks in this process, rank 0,
-    for the block."""
+def fake_world(world: int, rank: int):
+    """A fake process group of ``world`` ranks in this process, as rank
+    ``rank``, for the block."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         raise RuntimeError("a process group is already initialised; the "
                            "dry-run needs its own fake one")
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world)
     try:
         yield
@@ -176,9 +181,10 @@ def run_cell(arch: str, shape: Union[str, Any], multi_pod: bool,
             rec.update(status="skipped", reason=why)
             return rec
     world = 512 if multi_pod else 256
+    rec["rank"] = sharding.TP - 1       # the busiest of its "model" group
     t0 = time.time()
     try:
-        with fake_world(world):
+        with fake_world(world, rec["rank"]):
             mesh = make_production_mesh(multi_pod=multi_pod)
             names = mesh.mesh_dim_names
             places = mesh_places(mesh)

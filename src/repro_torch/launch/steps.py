@@ -136,10 +136,9 @@ def build_sharded_train_step(model: Model, ocfg: opt_lib.OptConfig,
       **mesh_places(mesh))``) and computes on them: Megatron tensor
       parallelism over "model" (:mod:`~repro_torch.models.blocks`), with
       the collectives of :mod:`~repro_torch.models.sharding` declared for
-      the step.  The leaves that ``model.layout()`` names are the
-      exceptions: the attention leaves whose heads do not split whole
-      (gathered at use) and the recurrent blocks' (held whole, their
-      updated slices gathered over "model" after each step).
+      the step; each rank computes its share of every block's heads, and
+      the leaves ``model.layout()`` marks ``gather="use"`` are gathered
+      at use and cut to the part those heads read.
     * The batch's rows go over "data" (and "pod" where the mesh has it,
       pod-major; over every dimension under
       ``sharding.pure_data_parallel``, and then nothing is
@@ -163,7 +162,7 @@ def build_sharded_train_step(model: Model, ocfg: opt_lib.OptConfig,
       :func:`optimizer.update_leaf` (the reduced slices kept in the
       gradients' own dtype until then, as a single rank's are), and the
       slices are gathered back
-      over "data" (and over "model" for the leaves held whole).
+      over "data".
 
     The moments are replaced by DTensors of the rank's slices;
     ``train_step.master`` holds each parameter as a DTensor over the
@@ -186,7 +185,7 @@ def build_sharded_train_step(model: Model, ocfg: opt_lib.OptConfig,
     # the rows over ("data", "model"): nothing is tensor-parallel
     pure_dp = "model" in rows_names
     width_ax = sharding.width_axis_of(mesh)
-    d, m = data_ax.size, (model_ax.size if model_ax else 1)
+    d = data_ax.size
     n_rows = rows_ax.size
     mrank = model_ax.rank if model_ax else 0
     places = mesh_places(mesh)
@@ -211,14 +210,9 @@ def build_sharded_train_step(model: Model, ocfg: opt_lib.OptConfig,
     od = {n: sharding.data_dim(ospecs.mu[n]) for n in params}
     # a leaf held whole over "data" keeps a ZeRO-1 slice of it
     zd = {n: od[n] if layout[n].width_dim is None else None for n in params}
-    # the dimension a leaf held whole is sliced along over "model"
-    om = {n: sharding.model_dim(ospecs.mu[n])
-          if layout[n].gather == "step" else None for n in params}
 
     def own(x: torch.Tensor, n: str) -> torch.Tensor:
         """This rank's ZeRO-1 slice (a view) of the stored leaf ``x``."""
-        if om[n] is not None:
-            x = sharding.shard_of(x, om[n], mrank, m)
         if zd[n] is not None:
             x = sharding.shard_of(x, zd[n], data_ax.rank, d)
         return x
@@ -226,7 +220,7 @@ def build_sharded_train_step(model: Model, ocfg: opt_lib.OptConfig,
     def counted(n: str) -> float:
         """1 on the one rank of each replicated copy of a slice."""
         once = od[n] is not None or data_ax.rank == 0
-        sliced = om[n] is not None or layout[n].shard_dim is not None
+        sliced = layout[n].shard_dim is not None
         first = all(ax.rank == 0 for ax in sum_axes)
         return 1.0 if once and first and (sliced or mrank == 0) else 0.0
 
@@ -256,8 +250,6 @@ def build_sharded_train_step(model: Model, ocfg: opt_lib.OptConfig,
             g = grads.pop(n)
             dtype = g.dtype
             g = g.float()                   # in place where fp32: no copy
-            if om[n] is not None:           # the same on every model rank
-                g = sharding.shard_of(g, om[n], mrank, m)
             if layout[n].width_dim is not None:     # saw every data rank
                 for ax in sum_axes:
                     g = sharding.all_reduce(g, ax)
@@ -286,13 +278,8 @@ def build_sharded_train_step(model: Model, ocfg: opt_lib.OptConfig,
                 opt_lib.update_leaf(mine, slices.pop(n),
                                     opt_state.mu[n].to_local(),
                                     opt_state.nu[n].to_local(), k, ocfg)
-                whole = p if om[n] is None else \
-                    sharding.shard_of(p, om[n], mrank, m)
                 if zd[n] is not None and d > 1:
-                    whole.copy_(sharding.all_gather(mine, data_ax, zd[n],
-                                                    n))
-                if om[n] is not None and m > 1:
-                    p.copy_(sharding.all_gather(whole, model_ax, om[n], n))
+                    p.copy_(sharding.all_gather(mine, data_ax, zd[n], n))
         return dict(loss=loss, grad_norm=gnorm, lr=k.lr)
 
     train_step.master = master

@@ -22,29 +22,28 @@ model is made trainable.
 
 Built under :func:`sharding.build_shards` (``Model(cfg, tp=(rank, m))``),
 every leaf whose spec names "model" keeps only the rank's slice, drawn
-whole and sliced, so the draws are the world of one's.  The attention
-block, the MLP, the experts and (in ``Model``) the embeddings then
-compute on their shards, Megatron's way: ``wq`` / ``wk`` / ``wv`` and
-``w1`` / ``w3`` are column-parallel on the rank's heads and hidden units
-behind one :func:`sharding.copy_to_model`, ``wo`` and ``w2`` are
-row-parallel with one :func:`sharding.reduce_from_model` after each, and
-the experts run expert-parallel (``moe.moe_ffn(expert_parallel=True)``),
-each on the rank's slice of its hidden width over "data" where the
-model is built with ``dp=(rank, D)``.
-Where the heads do not split whole over the group (:func:`heads_split`),
-the leaves concerned stay sharded in storage and are gathered whole at
-use: only ``wk`` / ``wv`` where each rank's query heads read one K/V head
-(cut to that head's columns before the product), all four where the
-query heads do not split, and that attention is computed whole.  The recurrent blocks
-(``COMPUTES_ON_SHARDS = False``) are built whole and compute whole:
-their packed projections (``in_proj``'s z/x/B/C/dt, ``wx``'s four
-gates) do not split by heads as a plain column slice, so the train step
-gathers their leaves over "model" (``Model.layout``).
+whole and sliced, so the draws are the world of one's.  Every block then
+computes on its shards, Megatron's way: each rank computes the heads
+:func:`heads_split` gives it (an uneven split: ``⌊h/m⌋`` or ``⌈h/m⌉``,
+none where ``h < m``) — the attention's query heads and the K/V heads
+they read, Mamba-2's SSD heads, the mLSTM's and sLSTM's heads — and the
+hidden units of its slice of the MLP; the products into them are
+column-parallel behind one :func:`sharding.copy_to_model`, those out of
+them (``wo``, ``out_proj``, ``down``, ``out``, ``w2``) row-parallel with
+one :func:`sharding.reduce_from_model` after each.  The experts run
+expert-parallel (``moe.moe_ffn(expert_parallel=True)``), each on the
+rank's slice of its hidden width over "data" where the model is built
+with ``dp=(rank, D)``.  Storage stays the specs' share; a leaf whose
+stored slice is not the part its heads read (an uneven split, K/V heads
+that do not split, a packed projection such as ``in_proj``'s
+``[z | x | B C | dt]`` or ``wx``'s four gates) is gathered whole over
+"model" at use and cut to that part, its gradient reduce-scattered back
+(:class:`_Heads`).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,21 +65,86 @@ def _param(t: torch.Tensor, spec: Optional[P] = None) -> nn.Parameter:
     return nn.Parameter(sharding.keep_shard(t, spec), requires_grad=False)
 
 
-def heads_split(cfg: ModelConfig, m: int) -> str:
-    """How the attention's heads split over a "model" group of ``m``:
-    ``"whole"`` (every rank holds whole query heads and the whole K/V
-    heads they read), ``"kv"`` (whole query heads, all of which read one
-    K/V head, while the K/V heads themselves do not split: ``wk`` / ``wv``
-    are gathered at use and cut to the rank's head), or ``"none"`` (the
-    query heads do not split: all four leaves are gathered at use)."""
-    specs = _attn_leaf_specs(cfg)
-    if not all(model_dim(sp) is not None for sp in specs.values()) or \
-            cfg.n_heads % m:
-        return "none"
-    if cfg.n_kv_heads % m == 0:
-        return "whole"
-    local, n_rep = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
-    return "kv" if n_rep % local == 0 else "none"
+def heads_split(n: int, m: int, rank: int) -> Tuple[int, int]:
+    """The heads ``[lo, hi)`` of ``n`` that rank ``rank`` of a "model"
+    group of ``m`` computes: ``[⌊n·rank/m⌋, ⌊n·(rank+1)/m⌋)``, an uneven
+    split with no padding.  Every rank computes ``⌊n/m⌋`` or ``⌈n/m⌉``
+    heads, the last rank ``⌈n/m⌉``; where ``n < m`` some ranks compute
+    none (2 heads over 4 ranks, xlstm's 4 over 16), and their share of
+    each row-parallel sum is zeros."""
+    return n * rank // m, n * (rank + 1) // m
+
+
+def _build_heads(n: int) -> Tuple[int, int]:
+    """:func:`heads_split` of the model being built."""
+    return heads_split(n, sharding.build_size(), sharding.build_rank())
+
+
+Pieces = List[Tuple[int, int]]
+
+
+def _spans(lo: int, hi: int, width: int, *starts: int) -> Pieces:
+    """Heads ``[lo, hi)`` of ``width`` elements each, at each of
+    ``starts`` (default 0): ``[(start + lo·width, (hi - lo)·width),
+    ...]``."""
+    return [(s + lo * width, (hi - lo) * width) for s in starts or (0,)]
+
+
+def _stored_as_used(shape, spec: Optional[P], dim: int,
+                    pieces: Pieces) -> bool:
+    """Whether the rank being built stores exactly ``pieces`` (``(start,
+    length)`` along dimension ``dim`` of the whole leaf of ``shape``):
+    one rank, or the spec's slice is the rank's heads."""
+    m, rank = sharding.build_size(), sharding.build_rank()
+    if m == 1:
+        return True
+    sd = model_dim(spec)
+    return sd == dim and pieces == [(rank * shape[sd] // m, shape[sd] // m)]
+
+
+class _Heads(nn.Module):
+    """A module whose leaves each rank of the "model" group cuts, at use,
+    to the parts that the heads it computes read (:meth:`part`).  Storage
+    is the specs' share (:func:`sharding.keep_shard`); a leaf whose
+    stored slice is not its part is gathered whole at use and cut (its
+    gradient reduce-scattered back: the sum of the ranks' partial ones),
+    and one stored whole is cut as it is (its gradient all-reduced)."""
+
+    def __init__(self):
+        super().__init__()
+        # name -> (the dimension it is gathered along, or None where it
+        # is stored whole; the dimension it is cut along; the pieces)
+        self.cuts: Dict[str, tuple] = {}
+
+    def _leaf(self, name: str, t: torch.Tensor, spec: P, dim: int = 0,
+              pieces: Optional[Pieces] = None) -> None:
+        """Keep the whole leaf ``t`` as the rank stores it; at use it is
+        ``pieces`` along ``dim`` (``None``: whole on every rank, as a
+        norm's weight)."""
+        if pieces is not None and not _stored_as_used(t.shape, spec, dim,
+                                                      pieces):
+            self.cuts[name] = (model_dim(spec), dim, pieces)
+        setattr(self, name, _param(t, spec))
+
+    @property
+    def gather_leaves(self) -> Tuple[str, ...]:
+        """The leaves gathered whole over "model" at use."""
+        return tuple(n for n, c in self.cuts.items() if c[0] is not None)
+
+    def part(self, name: str) -> torch.Tensor:
+        """The leaf ``name``'s pieces this rank computes with,
+        concatenated in order along their dimension."""
+        w = getattr(self, name)
+        if name not in self.cuts:
+            return w
+        gdim, dim, pieces = self.cuts[name]
+        if gdim is None:
+            w = sharding.copy_to_model(w)
+        else:
+            w = sharding.gather_from_model(
+                w, gdim, getattr(w, "leaf_name", name), partial_grad=True)
+        parts = [w.narrow(dim, a, n) for a, n in pieces]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
 
 def _ones(cfg: ModelConfig, gen: torch.Generator) -> nn.Parameter:
@@ -123,62 +187,58 @@ def _prefixed(prefix: str, specs: Dict[str, P]) -> Dict[str, P]:
     return {f"{prefix}.{n}": sp for n, sp in specs.items()}
 
 
-class _AttnParams(nn.Module):
+class _AttnParams(_Heads):
     """``wq [d, H*hd]``, ``wk`` / ``wv [d, KV*hd]``, ``wo [H*hd, d]`` (the
-    reference's ``_attn_params``), or the rank's slices of them.  ``tp``:
-    ``wq`` / ``wo`` hold whole query heads of this rank, computed on as
-    they are; ``kv_select``: ``wk`` / ``wv`` are gathered whole at use
-    and cut to the one K/V head the rank's query heads read; where the
-    query heads do not split whole, all four are gathered whole at use
-    (:meth:`weights`).  ``gather_leaves`` names the leaves gathered at
-    use."""
+    reference's ``_attn_params``), or the rank's slices of them.  The
+    rank computes the query heads ``heads = [lo, hi)`` of
+    :func:`heads_split` and the K/V heads ``kv = [klo, khi)`` they read:
+    ``wq`` / ``wk`` / ``wv`` column-parallel on those heads, ``wo``
+    row-parallel on its query heads' rows (``tp``; :meth:`_Heads.part`).
+    ``kv_counts``: how many of its query heads read each of its K/V
+    heads, in order; unequal where its query heads straddle two K/V
+    groups, and the K/V heads are then repeated to the query heads before
+    the attention (:func:`_attend`)."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
         d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
         dt = dtype_of(cfg.param_dtype)
         self.cfg = cfg
-        self.specs = sp = _attn_leaf_specs(cfg)
-        self.wq = _param(_init_dense(gen, d, h * hd, dt), sp["wq"])
-        self.wk = _param(_init_dense(gen, d, kv * hd, dt), sp["wk"])
-        self.wv = _param(_init_dense(gen, d, kv * hd, dt), sp["wv"])
-        self.wo = _param(_init_dense(gen, h * hd, d, dt), sp["wo"])
-        m = sharding.build_size()
-        split = heads_split(cfg, m) if m > 1 else "whole"
-        self.tp = m > 1 and split != "none"
-        self.kv_select = m > 1 and split == "kv"
-        self.gather_leaves = ("wq", "wk", "wv", "wo") if split == "none" \
-            else ("wk", "wv") if self.kv_select else ()
-        # the K/V head the rank's query heads read (kv_select)
-        self.kv_head = sharding.build_rank() * (h // m) // (h // kv) \
-            if self.kv_select else 0
-
-    def weights(self):
-        """``(wq, wk, wv, wo)`` to compute with: the stored ones, and each
-        of ``gather_leaves`` gathered whole over "model" (its gradient
-        then this rank's slice of the whole one, which every rank holds
-        alike); for ``kv_select`` ``wk`` / ``wv`` cut to the columns of
-        the rank's K/V head (their gradient then the sum of the ranks'
-        partial ones)."""
-        out = []
-        hd = self.cfg.hd
-        for n in ("wq", "wk", "wv", "wo"):
-            w = getattr(self, n)
-            if n in self.gather_leaves:
-                w = sharding.gather_from_model(
-                    w, model_dim(self.specs[n]), getattr(w, "leaf_name", n),
-                    partial_grad=self.kv_select)
-                if self.kv_select:
-                    w = w[:, self.kv_head * hd:(self.kv_head + 1) * hd]
-            out.append(w)
-        return out
+        sp = _attn_leaf_specs(cfg)
+        lo, hi = self.heads = _build_heads(h)
+        rep = h // kv
+        klo = lo // rep
+        self.kv = (klo, (hi - 1) // rep + 1 if hi > lo else klo)
+        self.kv_counts = tuple(sum(1 for j in range(lo, hi) if j // rep == g)
+                               for g in range(*self.kv))
+        self._leaf("wq", _init_dense(gen, d, h * hd, dt), sp["wq"], 1,
+                   _spans(lo, hi, hd))
+        for n in ("wk", "wv"):
+            self._leaf(n, _init_dense(gen, d, kv * hd, dt), sp[n], 1,
+                       _spans(*self.kv, hd))
+        self._leaf("wo", _init_dense(gen, h * hd, d, dt), sp["wo"], 0,
+                   _spans(lo, hi, hd))
+        self.tp = sharding.build_size() > 1
 
     def kv_heads(self) -> int:
         """The K/V heads this rank computes (its cache's)."""
-        if self.kv_select:
-            return 1
-        return self.wk.shape[1] // self.cfg.hd if self.tp else \
-            self.cfg.n_kv_heads
+        return self.kv[1] - self.kv[0]
+
+
+def _attend(p: _AttnParams, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, fn) -> torch.Tensor:
+    """``fn(q, k, v)`` on the rank's heads, q [B,Sq,nq,hd] and k / v
+    [B,Sk,nkv,hd], k / v repeated to q's heads where its K/V heads are
+    read by unequal numbers of them.  A rank with no head computes
+    nothing: q itself, with k and v kept in the graph, so that the
+    collectives of their backward run on every rank."""
+    if not p.kv_counts:
+        return q + (k.sum() + v.sum()).to(q.dtype)
+    if len(set(p.kv_counts)) > 1:
+        k, v = (torch.cat([t.narrow(2, g, 1).expand(-1, -1, c, -1)
+                           for g, c in enumerate(p.kv_counts)], dim=2)
+                for t in (k, v))
+    return fn(q, k, v)
 
 
 def _column(x: torch.Tensor, tp: bool) -> torch.Tensor:
@@ -225,19 +285,22 @@ def _mlp_specs(cfg: ModelConfig, prefix: str, d_ff: int) -> Dict[str, P]:
     return _prefixed(prefix, _mlp_leaf_specs(cfg, d_ff))
 
 
-def _qkv(cfg: ModelConfig, w, x: torch.Tensor,
+def _heads_of(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor
+              ) -> torch.Tensor:
+    """``x`` [B,S,d] @ ``w`` [d, n·hd] as n heads, [B,S,n,hd]."""
+    return (x @ w).reshape(*x.shape[:2], w.shape[1] // cfg.hd, cfg.hd)
+
+
+def _qkv(cfg: ModelConfig, p: "_AttnParams", x: torch.Tensor,
          positions: Optional[torch.Tensor] = None,
          x_kv: Optional[torch.Tensor] = None):
-    """q from ``x``, k/v from ``x_kv`` (default ``x``) by ``w = (wq, wk,
-    wv, ...)``, on as many heads as the weights hold; RoPE at
+    """q from ``x``, k/v from ``x_kv`` (default ``x``), on the rank's
+    heads (``p``'s parts of ``wq`` / ``wk`` / ``wv``); RoPE at
     ``positions`` when they are given (self-attention only), M-RoPE for
     ``cfg.m_rope``."""
-    b, s, _ = x.shape
-    hd = cfg.hd
     xk = x if x_kv is None else x_kv
-    q = (x @ w[0]).reshape(b, s, -1, hd)
-    k = (xk @ w[1]).reshape(b, xk.shape[1], -1, hd)
-    v = (xk @ w[2]).reshape(b, xk.shape[1], -1, hd)
+    q = _heads_of(cfg, x, p.part("wq"))
+    k, v = (_heads_of(cfg, xk, p.part(n)) for n in ("wk", "wv"))
     if positions is not None:
         rope = apply_m_rope if cfg.m_rope else apply_rope
         q = rope(q, positions, cfg.rope_theta)
@@ -245,19 +308,26 @@ def _qkv(cfg: ModelConfig, w, x: torch.Tensor,
     return q, k, v
 
 
+def _attn_heads(cfg: ModelConfig, p: _AttnParams, x: torch.Tensor,
+                off: int, force_chunked: bool, causal: bool = True,
+                window: Optional[int] = None) -> torch.Tensor:
+    """``x`` [B,S,d] (normed) -> the attention's output on the rank's
+    query heads [B,S,nq·hd], with RoPE at positions ``off``..``off+S-1``
+    (before ``wo``)."""
+    positions = off + torch.arange(x.shape[1], device=x.device)[None, :]
+    q, k, v = _qkv(cfg, p, _column(x, p.tp), positions)
+    return _attend(p, q, k, v, lambda q, k, v: attn_lib.attention(
+        q, k, v, causal=causal, window=window, q_offset=off,
+        chunk=cfg.attention_chunk, force_chunked=force_chunked)).flatten(2)
+
+
 def _self_attention(cfg: ModelConfig, p: _AttnParams, x: torch.Tensor,
                     off: int, force_chunked: bool, causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """``x`` [B,S,d] (normed) -> the attention's output projected by
-    ``wo``, with RoPE at positions ``off``..``off+S-1``."""
-    b, s, _ = x.shape
-    w = p.weights()
-    positions = off + torch.arange(s, device=x.device)[None, :]
-    q, k, v = _qkv(cfg, w, _column(x, p.tp), positions)
-    o = attn_lib.attention(q, k, v, causal=causal, window=window,
-                           q_offset=off, chunk=cfg.attention_chunk,
-                           force_chunked=force_chunked)
-    return _row(o.reshape(b, s, -1) @ w[3], p.tp)
+    ``wo`` (row-parallel: summed over "model")."""
+    o = _attn_heads(cfg, p, x, off, force_chunked, causal, window)
+    return _row(o @ p.part("wo"), p.tp)
 
 
 def _self_decode(cfg: ModelConfig, p: _AttnParams,
@@ -267,12 +337,12 @@ def _self_decode(cfg: ModelConfig, p: _AttnParams,
     K/V written at ``pos`` first; returns the output projected by
     ``wo``."""
     b = x.shape[0]
-    w = p.weights()
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _qkv(cfg, w, _column(x, p.tp), positions)
+    q, k, v = _qkv(cfg, p, _column(x, p.tp), positions)
     kc, vc = attn_lib.update_cache(cache["k"], cache["v"], k, v, pos)
-    o = attn_lib.decode_attention(q, kc, vc, pos + 1, window=window)
-    return _row(o.reshape(b, 1, -1) @ w[3], p.tp)
+    o = _attend(p, q, kc, vc, lambda q, k, v: attn_lib.decode_attention(
+        q, k, v, pos + 1, window=window))
+    return _row(o.flatten(2) @ p.part("wo"), p.tp)
 
 
 class AttnBlock(nn.Module):
@@ -308,6 +378,12 @@ class AttnBlock(nn.Module):
     def window(self):
         return self.cfg.sliding_window if self.local else None
 
+    def head_outputs(self, x: torch.Tensor) -> torch.Tensor:
+        """The self-attention's output on the rank's query heads
+        [B,S,nq·hd] before ``wo`` (causal, from position 0)."""
+        return _attn_heads(self.cfg, self.attn, rms_norm(x, self.ln1), 0,
+                           False, True, self.window)
+
     def forward(self, x: torch.Tensor, off: int = 0,
                 force_chunked: bool = False,
                 enc_out: Optional[torch.Tensor] = None,
@@ -320,14 +396,12 @@ class AttnBlock(nn.Module):
         x = x + _self_attention(self.cfg, self.attn, rms_norm(x, self.ln1),
                                 off, force_chunked, causal, self.window)
         if enc_out is not None and self.cross:
-            b, s, _ = x.shape
             xa = self.xattn
-            w = xa.weights()
-            q, k, v = _qkv(self.cfg, w, _column(rms_norm(x, self.lnx), xa.tp),
+            q, k, v = _qkv(self.cfg, xa, _column(rms_norm(x, self.lnx), xa.tp),
                            x_kv=_column(enc_out, xa.tp))
-            o = attn_lib.attention(q, k, v, causal=False, chunk=0,
-                                   force_chunked=force_chunked)
-            x = x + _row(o.reshape(b, s, -1) @ w[3], xa.tp)
+            o = _attend(xa, q, k, v, lambda q, k, v: attn_lib.attention(
+                q, k, v, causal=False, chunk=0, force_chunked=force_chunked))
+            x = x + _row(o.flatten(2) @ xa.part("wo"), xa.tp)
         return x + _mlp(rms_norm(x, self.ln2), self.mlp), _no_aux(x)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
@@ -341,8 +415,9 @@ class AttnBlock(nn.Module):
         """The cross-attention's K/V of ``enc_out`` [B,S_enc,d], ``xk`` /
         ``xv`` [B,S_enc,KV,hd] (this rank's K/V heads), projected by
         ``xattn`` as ``forward`` projects them."""
-        _, k, v = _qkv(self.cfg, self.xattn.weights(),
-                       _column(enc_out, self.xattn.tp))
+        xc = _column(enc_out, self.xattn.tp)
+        k, v = (_heads_of(self.cfg, xc, self.xattn.part(n))
+                for n in ("wk", "wv"))
         return dict(xk=k, xv=v)
 
     def decode(self, cache: Dict[str, torch.Tensor], x_t: torch.Tensor,
@@ -355,14 +430,13 @@ class AttnBlock(nn.Module):
                                  cache, rms_norm(x_t, self.ln1), pos,
                                  self.window)
         if self.cross and "xk" in cache:
-            b = x_t.shape[0]
             xa = self.xattn
-            w = xa.weights()
-            q = (_column(rms_norm(x_t, self.lnx), xa.tp) @ w[0]).reshape(
-                b, 1, -1, self.cfg.hd)
-            o = attn_lib.decode_attention(q, cache["xk"], cache["xv"],
-                                          cache["xk"].shape[1])
-            x_t = x_t + _row(o.reshape(b, 1, -1) @ w[3], xa.tp)
+            q = _heads_of(self.cfg, _column(rms_norm(x_t, self.lnx), xa.tp),
+                          xa.part("wq"))
+            o = _attend(xa, q, cache["xk"], cache["xv"],
+                        lambda q, k, v: attn_lib.decode_attention(
+                            q, k, v, k.shape[1]))
+            x_t = x_t + _row(o.flatten(2) @ xa.part("wo"), xa.tp)
         return x_t + _mlp(rms_norm(x_t, self.ln2), self.mlp)
 
 
@@ -527,31 +601,43 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, state=None):
     return out, xp[:, -3:]
 
 
-class Mamba2Block(nn.Module):
+class Mamba2Block(_Heads):
     """Mamba-2: pre-RMSNorm, ``in_proj`` to (z, xBC, dt), a width-4
     causal conv and SiLU on xBC, SSD over ``nh`` heads of 64 with one
     B/C group, the ``d_skip`` term, a SiLU(z) gate and ``out_proj``, with
     a residual.  ``ln [d]``, ``in_proj [d, 2·d_in + 2·N + nh]``, ``conv_w
     [4, d_in + 2·N]``, ``out_proj [d_in, d]``; ``a_log``, ``d_skip``,
-    ``dt_bias [nh]`` fp32."""
+    ``dt_bias [nh]`` fp32.
 
-    COMPUTES_ON_SHARDS = False      # its leaves are gathered whole
+    A rank computes its heads ``heads = [lo, hi)`` of :func:`heads_split`:
+    ``z``, ``x`` and ``dt`` on them and ``B`` / ``C`` whole (``in_proj``'s
+    part is its ``[z | x | B C | dt]`` columns), the conv on its ``x``
+    channels and the whole ``B`` / ``C`` ones, the SSD on its heads, and
+    ``out_proj`` row-parallel on its heads' rows."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_model
-        d_in, _, nh, n, conv_dim = _mamba_dims(cfg)
+        d_in, hdim, nh, n, conv_dim = _mamba_dims(cfg)
         dt = dtype_of(cfg.param_dtype)
         gen = generator
         f32 = dict(dtype=torch.float32, device=gen.device)
+        sp = self.param_specs()
+        lo, hi = self.heads = _build_heads(nh)
+        self.tp = sharding.build_size() > 1
         self.ln = _ones(cfg, gen)
-        self.in_proj = _param(_init_dense(gen, d, 2 * d_in + 2 * n + nh, dt))
-        self.conv_w = _randn(gen, (4, conv_dim), 0.2, dt)
-        self.a_log = _param(torch.zeros((nh,), **f32))
-        self.d_skip = _param(torch.ones((nh,), **f32))
-        self.dt_bias = _param(torch.zeros((nh,), **f32))
-        self.out_proj = _param(_init_dense(gen, d_in, d, dt))
+        self._leaf("in_proj", _init_dense(gen, d, 2 * d_in + 2 * n + nh, dt),
+                   sp["in_proj"], 1,
+                   _spans(lo, hi, hdim, 0, d_in) + [(2 * d_in, 2 * n)] +
+                   _spans(lo, hi, 1, 2 * d_in + 2 * n))
+        self._leaf("conv_w", _draw(gen, (4, conv_dim), 0.2, dt), sp["conv_w"],
+                   1, _spans(lo, hi, hdim) + [(d_in, 2 * n)])
+        for name, fill in (("a_log", 0.0), ("d_skip", 1.0), ("dt_bias", 0.0)):
+            self._leaf(name, torch.full((nh,), fill, **f32), sp[name], 0,
+                       _spans(lo, hi, 1))
+        self._leaf("out_proj", _init_dense(gen, d_in, d, dt), sp["out_proj"],
+                   0, _spans(lo, hi, hdim))
 
     def param_specs(self) -> Dict[str, P]:
         d_in, _, nh, n, _ = _mamba_dims(self.cfg)
@@ -559,62 +645,74 @@ class Mamba2Block(nn.Module):
                     conv_w=P(None, None), a_log=P(None), d_skip=P(None),
                     dt_bias=P(None), out_proj=P(mdl(d_in), None))
 
-    def _project(self, x):
-        d_in, _, _, _, conv_dim = _mamba_dims(self.cfg)
-        zxbcdt = rms_norm(x, self.ln) @ self.in_proj
-        return (zxbcdt[..., :d_in], zxbcdt[..., d_in:d_in + conv_dim],
-                zxbcdt[..., d_in + conv_dim:])
+    def _heads_in(self, x, conv_state=None):
+        """The rank's heads' SSD inputs from ``x`` [B,S,d]: ``xs``
+        [B,S,nl,64], ``bmat`` / ``cmat`` [B,S,N], ``dt`` [B,S,nl] fp32,
+        ``z`` [B,S,nl·64], the conv's next state, ``a_log`` / ``d_skip``
+        of its heads."""
+        _, hdim, _, n, _ = _mamba_dims(self.cfg)
+        nl = self.heads[1] - self.heads[0]
+        zxbcdt = _column(rms_norm(x, self.ln), self.tp) @ self.part("in_proj")
+        z = zxbcdt[..., :nl * hdim]
+        xbc, conv_state = _causal_conv(
+            zxbcdt[..., nl * hdim:2 * nl * hdim + 2 * n], self.part("conv_w"),
+            conv_state)
+        xbc = F.silu(xbc)
+        xs = xbc[..., :nl * hdim].reshape(*x.shape[:2], nl, hdim)
+        bmat = xbc[..., nl * hdim:nl * hdim + n]
+        cmat = xbc[..., nl * hdim + n:]
+        dt = F.softplus(zxbcdt[..., 2 * nl * hdim + 2 * n:].float() +
+                        self.part("dt_bias"))
+        return (xs, bmat, cmat, dt, z, conv_state, self.part("a_log"),
+                self.part("d_skip"))
+
+    def _out(self, x, y):
+        """``y`` [B,S,nl·64] (gated) through the rank's rows of
+        ``out_proj``, summed over "model", added to ``x``."""
+        return x + _row(y @ self.part("out_proj"), self.tp).to(x.dtype)
+
+    def head_outputs(self, x: torch.Tensor) -> torch.Tensor:
+        """The SSD's output on the rank's heads with the ``d_skip`` term,
+        gated by SiLU(z), [B,S,nl·64] (before ``out_proj``)."""
+        xs, bmat, cmat, dt, z, _, a_log, d_skip = self._heads_in(x)
+        a = -torch.exp(a_log) * dt                        # [B,S,nl]
+        y, _ = ssm_lib.ssd_chunked(xs * dt[..., None].to(xs.dtype), a,
+                                   bmat, cmat, self.cfg.ssm_chunk)
+        y = y.to(xs.dtype) + xs * d_skip[:, None].to(xs.dtype)
+        return y.flatten(2) * F.silu(z)
 
     def forward(self, x: torch.Tensor, off: int = 0,
                 force_chunked: bool = False):
         """x: [B,S,d] with S a multiple of ``cfg.ssm_chunk`` ->
         ``(x, 0)``."""
-        b, s, _ = x.shape
-        d_in, hdim, nh, n, _ = _mamba_dims(self.cfg)
-        z, xbc, dt_raw = self._project(x)
-        xbc = F.silu(_causal_conv(xbc, self.conv_w)[0])
-        xs = xbc[..., :d_in].reshape(b, s, nh, hdim)
-        bmat = xbc[..., d_in:d_in + n]
-        cmat = xbc[..., d_in + n:]
-        dt = F.softplus(dt_raw.float() + self.dt_bias)
-        a = -torch.exp(self.a_log) * dt                   # [B,S,H]
-        y, _ = ssm_lib.ssd_chunked(xs * dt[..., None].to(xs.dtype), a,
-                                   bmat, cmat, self.cfg.ssm_chunk)
-        y = y.to(xs.dtype) + xs * self.d_skip[:, None].to(xs.dtype)
-        y = y.reshape(b, s, d_in) * F.silu(z)
-        return x + (y @ self.out_proj).to(x.dtype), _no_aux(x)
+        return self._out(x, self.head_outputs(x)), _no_aux(x)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
-        """The conv's last 3 inputs [B,3,C] and the SSD state [B,nh,64,N],
-        zero, in the compute dtype."""
-        _, hdim, nh, n, conv_dim = _mamba_dims(self.cfg)
+        """The conv's last 3 inputs [B,3,C] of the rank's channels (its
+        heads' ``x`` and the whole ``B`` / ``C``) and the SSD state
+        [B,nl,64,N] of its heads, zero, in the compute dtype."""
+        _, hdim, _, n, _ = _mamba_dims(self.cfg)
+        nl = self.heads[1] - self.heads[0]
         kw = dict(dtype=dtype_of(self.cfg.compute_dtype),
                   device=self.ln.device)
-        return dict(conv=torch.zeros((batch, 3, conv_dim), **kw),
-                    ssm=torch.zeros((batch, nh, hdim, n), **kw))
+        return dict(conv=torch.zeros((batch, 3, nl * hdim + 2 * n), **kw),
+                    ssm=torch.zeros((batch, nl, hdim, n), **kw))
 
     def decode(self, cache: Dict[str, torch.Tensor], x_t: torch.Tensor,
                pos: int) -> torch.Tensor:
         """x_t: [B,1,d]; the state advances in fp32 and is stored back in
         the cache's dtype, as in the reference."""
-        b = x_t.shape[0]
-        d_in, hdim, nh, n, _ = _mamba_dims(self.cfg)
-        z, xbc, dt_raw = self._project(x_t)
-        xbc, conv_state = _causal_conv(xbc, self.conv_w, cache["conv"])
-        xbc = F.silu(xbc)
-        xs = xbc[:, 0, :d_in].reshape(b, nh, hdim)
-        bmat = xbc[:, 0, d_in:d_in + n]
-        cmat = xbc[:, 0, d_in + n:]
-        dt = F.softplus(dt_raw[:, 0].float() + self.dt_bias)
-        a = -torch.exp(self.a_log) * dt                   # [B,H]
+        xs, bmat, cmat, dt, z, conv_state, a_log, d_skip = self._heads_in(
+            x_t, cache["conv"])
+        xs, bmat, cmat, dt = xs[:, 0], bmat[:, 0], cmat[:, 0], dt[:, 0]
+        a = -torch.exp(a_log) * dt                        # [B,nl]
         y, ssm = ssm_lib.ssd_decode_step(
             cache["ssm"].float(), (xs * dt[..., None].to(xs.dtype)).float(),
             a, bmat.float(), cmat.float())
-        y = y.to(xs.dtype) + xs * self.d_skip[:, None].to(xs.dtype)
-        y = y.reshape(b, 1, d_in) * F.silu(z)
+        y = y.to(xs.dtype) + xs * d_skip[:, None].to(xs.dtype)
         cache["conv"] = conv_state.to(cache["conv"].dtype)
         cache["ssm"] = ssm.to(cache["ssm"].dtype)
-        return x_t + y @ self.out_proj
+        return self._out(x_t, y[:, None].flatten(2) * F.silu(z))
 
 
 # =========================================================== mlstm block
@@ -626,29 +724,38 @@ def _mlstm_dims(cfg: ModelConfig):
     return dp, h, dp // h
 
 
-class MlstmBlock(nn.Module):
+class MlstmBlock(_Heads):
     """xLSTM matrix-LSTM block: pre-RMSNorm, ``up`` to (x, z) of width
     dp = ``mlstm_proj_factor``·d, q/k/v and the i/f gates from x, the
     chunkwise mLSTM (:func:`ssm.mlstm_chunked`), a SiLU(z) gate and
     ``down``, with a residual.  ``ln [d]``, ``up [d, 2·dp]``, ``wq`` /
-    ``wk`` / ``wv [dp, dp]``, ``wif [dp, 2·H]``, ``down [dp, d]``."""
+    ``wk`` / ``wv [dp, dp]``, ``wif [dp, 2·H]``, ``down [dp, d]``.
 
-    COMPUTES_ON_SHARDS = False      # its leaves are gathered whole
+    A rank computes its heads ``heads = [lo, hi)`` of :func:`heads_split`:
+    x whole (``up``'s first half), its heads' ``z`` channels, q / k / v
+    columns and i / f gates, the mLSTM on them, and ``down`` row-parallel
+    on its heads' rows."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_model
-        dp, h, _ = _mlstm_dims(cfg)
+        dp, h, hd = _mlstm_dims(cfg)
         dt = dtype_of(cfg.param_dtype)
         gen = generator
+        sp = self.param_specs()
+        lo, hi = self.heads = _build_heads(h)
+        self.tp = sharding.build_size() > 1
         self.ln = _ones(cfg, gen)
-        self.up = _param(_init_dense(gen, d, 2 * dp, dt))
-        self.wq = _param(_init_dense(gen, dp, dp, dt))
-        self.wk = _param(_init_dense(gen, dp, dp, dt))
-        self.wv = _param(_init_dense(gen, dp, dp, dt))
-        self.wif = _param(_init_dense(gen, dp, 2 * h, dt))
-        self.down = _param(_init_dense(gen, dp, d, dt))
+        self._leaf("up", _init_dense(gen, d, 2 * dp, dt), sp["up"], 1,
+                   [(0, dp)] + _spans(lo, hi, hd, dp))
+        for n in ("wq", "wk", "wv"):
+            self._leaf(n, _init_dense(gen, dp, dp, dt), sp[n], 1,
+                       _spans(lo, hi, hd))
+        self._leaf("wif", _init_dense(gen, dp, 2 * h, dt), sp["wif"], 1,
+                   _spans(lo, hi, 1, 0, h))
+        self._leaf("down", _init_dense(gen, dp, d, dt), sp["down"], 0,
+                   _spans(lo, hi, hd))
 
     def param_specs(self) -> Dict[str, P]:
         dp, _, _ = _mlstm_dims(self.cfg)
@@ -657,32 +764,47 @@ class MlstmBlock(nn.Module):
                     wif=P(None, None), down=P(mdl(dp), None))
 
     def _qkv_gates(self, x, shape):
-        dp, h, _ = _mlstm_dims(self.cfg)
-        up = rms_norm(x, self.ln) @ self.up
+        """q / k / v of ``shape`` (the rank's heads), the i / f gates and
+        z of the rank's heads, from ``x``."""
+        dp, _, _ = _mlstm_dims(self.cfg)
+        nl = self.heads[1] - self.heads[0]
+        up = _column(rms_norm(x, self.ln), self.tp) @ self.part("up")
         xm, z = up[..., :dp], up[..., dp:]
-        q = (xm @ self.wq).reshape(shape)
-        k = (xm @ self.wk).reshape(shape)
-        v = (xm @ self.wv).reshape(shape)
-        gates = xm @ self.wif
-        return q, k, v, gates[..., :h], gates[..., h:], z
+        q = (xm @ self.part("wq")).reshape(shape)
+        k = (xm @ self.part("wk")).reshape(shape)
+        v = (xm @ self.part("wv")).reshape(shape)
+        gates = xm @ self.part("wif")
+        return q, k, v, gates[..., :nl], gates[..., nl:], z
+
+    def _out(self, x, y):
+        """``y`` [..., nl·hd] (gated) through the rank's rows of ``down``,
+        summed over "model", added to ``x``."""
+        return x + _row(y @ self.part("down"), self.tp)
+
+    def head_outputs(self, x: torch.Tensor) -> torch.Tensor:
+        """The mLSTM's output on the rank's heads, gated by SiLU(z),
+        [B,S,nl·hd] (before ``down``)."""
+        b, s, _ = x.shape
+        _, _, hd = _mlstm_dims(self.cfg)
+        nl = self.heads[1] - self.heads[0]
+        q, k, v, ig, fg, z = self._qkv_gates(x, (b, s, nl, hd))
+        y, _ = ssm_lib.mlstm_chunked(q, k, v, ig, fg, self.cfg.ssm_chunk)
+        return y.to(x.dtype).flatten(-2) * F.silu(z)
 
     def forward(self, x: torch.Tensor, off: int = 0,
                 force_chunked: bool = False):
         """x: [B,S,d] with S a multiple of ``cfg.ssm_chunk`` ->
         ``(x, 0)``."""
-        b, s, _ = x.shape
-        dp, h, hd = _mlstm_dims(self.cfg)
-        q, k, v, ig, fg, z = self._qkv_gates(x, (b, s, h, hd))
-        y, _ = ssm_lib.mlstm_chunked(q, k, v, ig, fg, self.cfg.ssm_chunk)
-        y = y.to(x.dtype).reshape(b, s, dp) * F.silu(z)
-        return x + y @ self.down, _no_aux(x)
+        return self._out(x, self.head_outputs(x)), _no_aux(x)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
-        """``c [B·H,1,hd,hd]`` and ``n [B·H,1,1,hd]``, zero, in the compute
-        dtype; :meth:`decode` replaces them with fp32 tensors."""
-        dp, h, hd = _mlstm_dims(self.cfg)
+        """``c [B·nl,1,hd,hd]`` and ``n [B·nl,1,1,hd]`` of the rank's
+        heads, zero, in the compute dtype; :meth:`decode` replaces them
+        with fp32 tensors."""
+        _, _, hd = _mlstm_dims(self.cfg)
         c, n = ssm_lib.mlstm_init_state(
-            batch, h, hd, dtype_of(self.cfg.compute_dtype), self.ln.device)
+            batch, self.heads[1] - self.heads[0], hd,
+            dtype_of(self.cfg.compute_dtype), self.ln.device)
         return dict(c=c, n=n)
 
     def decode(self, cache: Dict[str, torch.Tensor], x_t: torch.Tensor,
@@ -691,26 +813,31 @@ class MlstmBlock(nn.Module):
         on (the reference's ``mlstm_decode_step`` promotes it), so the
         cache's ``c`` / ``n`` are replaced, not written into."""
         b = x_t.shape[0]
-        dp, h, hd = _mlstm_dims(self.cfg)
-        q, k, v, ig, fg, z = self._qkv_gates(x_t[:, 0], (b, h, hd))
+        _, _, hd = _mlstm_dims(self.cfg)
+        nl = self.heads[1] - self.heads[0]
+        q, k, v, ig, fg, z = self._qkv_gates(x_t[:, 0], (b, nl, hd))
         y, (c2, n2) = ssm_lib.mlstm_decode_step((cache["c"], cache["n"]),
                                                 q, k, v, ig, fg)
         cache["c"], cache["n"] = c2, n2
-        y = y.to(x_t.dtype).reshape(b, 1, dp) * F.silu(z[:, None])
-        return x_t + y @ self.down
+        return self._out(x_t, y[:, None].to(x_t.dtype).flatten(-2) *
+                         F.silu(z[:, None]))
 
 
 # =========================================================== slstm block
 
 
-class SlstmBlock(nn.Module):
+class SlstmBlock(_Heads):
     """xLSTM scalar-LSTM block: pre-RMSNorm, ``wx`` to the z/i/f/o
     pre-activations, the per-token sLSTM loop with block-diagonal
     recurrent weights ``r`` (:func:`ssm.slstm_scan`), ``out``, with a
     residual.  ``ln [d]``, ``wx [d, 4·d]``, ``r [4, H, hd, hd]`` (std
-    0.3/√hd), ``out [d, d]``."""
+    0.3/√hd), ``out [d, d]``.
 
-    COMPUTES_ON_SHARDS = False      # its leaves are gathered whole
+    The recurrence is block-diagonal by head, so a rank computes its
+    heads ``heads = [lo, hi)`` of :func:`heads_split` with no collective
+    inside the loop: their four gates' columns of ``wx``, their blocks of
+    ``r``, and ``out`` row-parallel on their rows (each of the three
+    gathered at use where the specs' slice is not that part)."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator):
         super().__init__()
@@ -719,10 +846,16 @@ class SlstmBlock(nn.Module):
         hd = d // h
         dt = dtype_of(cfg.param_dtype)
         gen = generator
+        sp = self.param_specs()
+        lo, hi = self.heads = _build_heads(h)
+        self.tp = sharding.build_size() > 1
         self.ln = _ones(cfg, gen)
-        self.wx = _param(_init_dense(gen, d, 4 * d, dt))
-        self.r = _randn(gen, (4, h, hd, hd), 0.3 / math.sqrt(hd), dt)
-        self.out = _param(_init_dense(gen, d, d, dt))
+        self._leaf("wx", _init_dense(gen, d, 4 * d, dt), sp["wx"], 1,
+                   _spans(lo, hi, hd, *range(0, 4 * d, d)))
+        self._leaf("r", _draw(gen, (4, h, hd, hd), 0.3 / math.sqrt(hd), dt),
+                   sp["r"], 1, _spans(lo, hi, 1))
+        self._leaf("out", _init_dense(gen, d, d, dt), sp["out"], 0,
+                   _spans(lo, hi, hd))
 
     def param_specs(self) -> Dict[str, P]:
         d = self.cfg.d_model
@@ -730,31 +863,40 @@ class SlstmBlock(nn.Module):
                     r=P(None, None, None, mdl(d // self.cfg.n_heads)),
                     out=P(None, mdl(d)))
 
-    def _parts(self, x):
+    def _scan(self, x, state=None):
+        """The sLSTM on the rank's heads: ``(h_seq [B,S,nl·hd], state)``
+        (before ``out``)."""
         b, s, d = x.shape
-        h = self.cfg.n_heads
-        return (rms_norm(x, self.ln) @ self.wx).reshape(b, s, 4, h, d // h)
+        nl = self.heads[1] - self.heads[0]
+        parts = (_column(rms_norm(x, self.ln), self.tp) @ self.part("wx")
+                 ).reshape(b, s, 4, nl, d // self.cfg.n_heads)
+        ys, state = ssm_lib.slstm_scan(parts, self.part("r"), state)
+        return ys.to(x.dtype).flatten(2), state
+
+    def _out(self, x, ys):
+        return x + _row(ys @ self.part("out"), self.tp)
+
+    def head_outputs(self, x: torch.Tensor) -> torch.Tensor:
+        """The sLSTM's ``h`` on the rank's heads [B,S,nl·hd] (before
+        ``out``)."""
+        return self._scan(x)[0]
 
     def forward(self, x: torch.Tensor, off: int = 0,
                 force_chunked: bool = False):
         """x: [B,S,d] -> ``(x, 0)``."""
-        b, s, d = x.shape
-        ys, _ = ssm_lib.slstm_scan(self._parts(x), self.r)
-        return x + ys.to(x.dtype).reshape(b, s, d) @ self.out, _no_aux(x)
+        return self._out(x, self._scan(x)[0]), _no_aux(x)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
-        """The fp32 state ``c``, ``n``, ``h``, ``m`` [B,H,hd] at its start
-        (n = 1e-6, m = -10)."""
-        h = self.cfg.n_heads
-        z = torch.zeros((batch, h, self.cfg.d_model // h),
+        """The fp32 state ``c``, ``n``, ``h``, ``m`` [B,nl,hd] of the
+        rank's heads at its start (n = 1e-6, m = -10)."""
+        z = torch.zeros((batch, self.heads[1] - self.heads[0],
+                         self.cfg.d_model // self.cfg.n_heads),
                         dtype=torch.float32, device=self.ln.device)
         return dict(c=z, n=z + 1e-6, h=z, m=z - 10.0)
 
     def decode(self, cache: Dict[str, torch.Tensor], x_t: torch.Tensor,
                pos: int) -> torch.Tensor:
-        b, _, d = x_t.shape
         state = (cache["c"], cache["n"], cache["h"], cache["m"])
-        ys, (c, n, hh, m) = ssm_lib.slstm_scan(self._parts(x_t), self.r,
-                                               state)
+        ys, (c, n, hh, m) = self._scan(x_t, state)
         cache.update(c=c, n=n, h=hh, m=m)
-        return x_t + ys.to(x_t.dtype).reshape(b, 1, d) @ self.out
+        return self._out(x_t, ys)

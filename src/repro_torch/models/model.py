@@ -33,7 +33,8 @@ Public surface::
                                   #  [, "frontend"]}
     specs = m.param_specs()       # {parameter name: sharding.P}
     layout = m.layout()           # {parameter name: Leaf}: what is sharded
-                                  # and what gathered whole
+                                  # and what gathered at use
+    heads = m.computed_heads()    # {module name: (lo, hi)}: this rank's
 
 A vision-language model (``cfg.frontend == "vision"``, qwen2-vl) takes
 the frontend's output ``frontend`` [B,nf,d] (the vision tower's stub:
@@ -99,7 +100,7 @@ from torch.utils import checkpoint as ckpt
 from ..device import DeviceLike, resolve_device
 from . import sharding
 from .blocks import (AttnBlock, Mamba2Block, MlstmBlock, MoeBlock,
-                     SlstmBlock, _AttnParams, _init_dense, _ones, _param)
+                     SlstmBlock, _init_dense, _ones, _param)
 from .config import BlockSpec, ModelConfig
 from .layers import draw_normal, dtype_of, rms_norm, softmax_xent
 from .sharding import P, mdl, model_dim
@@ -164,13 +165,12 @@ class Leaf:
     """How a rank holds one parameter over a ("data", "model") mesh:
     ``spec`` its partition spec; ``shard_dim`` the dimension it is stored
     sliced along over "model" (``None``: whole); ``gather`` ``"use"``
-    (stored sliced, gathered whole over "model" where it is used),
-    ``"step"`` (stored whole, its "model" slice gathered by the train
-    step after each update) or ``None``; ``data_dim`` the dimension its
-    spec shards over "data"; ``width_dim`` the dimension it is stored
-    sliced along over "data" (the experts' hidden width, in a model built
-    with ``dp=(rank, D)``, D > 1; ``None``: whole over "data", and the
-    train step keeps a ZeRO-1 slice of it)."""
+    (stored sliced, gathered whole over "model" where it is used and cut
+    to the part the rank's heads read) or ``None``; ``data_dim`` the
+    dimension its spec shards over "data"; ``width_dim`` the dimension it
+    is stored sliced along over "data" (the experts' hidden width, in a
+    model built with ``dp=(rank, D)``, D > 1; ``None``: whole over
+    "data", and the train step keeps a ZeRO-1 slice of it)."""
     spec: P
     shard_dim: Optional[int]
     gather: Optional[str]
@@ -436,14 +436,11 @@ class Model(nn.Module):
     def layout(self) -> Dict[str, Leaf]:
         """The one rule of what a rank of this model's "model" group holds
         and gathers, by parameter name (:class:`Leaf`).  A leaf whose spec
-        names "model" is stored sliced and computed on as a shard, except:
-        the attention leaves of a block whose heads do not split whole
-        over the group (``gather="use"``: ``wk`` / ``wv`` where each
-        rank's query heads read one K/V head, all four where the query
-        heads do not split; ``blocks.heads_split``), and the leaves of the recurrent
-        blocks, which are stored and computed whole (``gather="step"``).
-        A leaf whose spec names "data" (the experts' hidden width) is
-        stored sliced along it in a model built with ``dp=(rank, D)``
+        names "model" is stored sliced; it is computed on as it is where
+        its slice is the part the rank's heads read, and gathered at use
+        (``gather="use"``) where it is not (``blocks._Heads``).  A leaf
+        whose spec names "data" (the experts' hidden width) is stored
+        sliced along it in a model built with ``dp=(rank, D)``
         (``width_dim``), and whole otherwise."""
         m = self.tp[1]
         owner = {}
@@ -452,18 +449,20 @@ class Model(nn.Module):
                 owner[f"{mname}.{pname}" if mname else pname] = mod
         out = {}
         for n, spec in self.param_specs().items():
-            dim, mod, gather = model_dim(spec), owner[n], None
-            if dim is None or m == 1:
-                dim = None
-            elif not getattr(mod, "COMPUTES_ON_SHARDS", True):
-                dim, gather = None, "step"
-            elif isinstance(mod, _AttnParams) and \
-                    n.rsplit(".", 1)[1] in mod.gather_leaves:
-                gather = "use"
+            dim = model_dim(spec) if m > 1 else None
+            use = n.rsplit(".", 1)[-1] in getattr(owner[n], "gather_leaves",
+                                                   ())
             ddim = sharding.data_dim(spec)
-            out[n] = Leaf(spec, dim, gather, ddim,
+            out[n] = Leaf(spec, dim, "use" if use else None, ddim,
                           ddim if self.dp[1] > 1 else None)
         return out
+
+    def computed_heads(self) -> Dict[str, Tuple[int, int]]:
+        """The heads ``[lo, hi)`` this rank computes in each module that
+        splits heads over "model", by module name (``blocks.heads_split``;
+        a shared block once)."""
+        return {n: mod.heads for n, mod in self.named_modules()
+                if isinstance(getattr(mod, "heads", None), tuple)}
 
     def whole_shapes(self) -> Dict[str, Tuple[int, ...]]:
         """Every parameter's shape in the world of one, by name: the

@@ -28,9 +28,14 @@ rows go over every mesh dimension (:func:`row_axis_names`).
 (Megatron tensor parallelism).  A model built with ``Model(cfg,
 tp=(rank, m))`` holds only its shard of each leaf whose spec names
 "model" (:func:`keep_shard`, under :func:`build_shards`), and computes on
-it: column-parallel products on local heads or hidden units, each
-row-parallel product followed by one :func:`reduce_from_model`, experts
-parallel over "model", the vocabulary sharded at both ends.
+the rank's share of every block's heads (``blocks.heads_split``, an
+uneven split where GSPMD pads: attention, Mamba-2, the mLSTM and sLSTM)
+and of the MLP's hidden units: column-parallel products into them, each
+row-parallel product out of them followed by one
+:func:`reduce_from_model`, experts parallel over "model", the vocabulary
+sharded at both ends.  Where a stored slice is not the part the rank's
+heads read, the leaf is gathered whole at use and cut
+(:func:`gather_from_model` with ``partial_grad``).
 :func:`parallel` declares, for the duration of a step, the "model" and
 "data" :class:`Axis` (a process group, its size and this rank's index in
 it) that the model's collectives run over, and the "width" axis that the

@@ -26,7 +26,6 @@ from repro_torch.models.model import Model
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DRYRUN = os.path.join(ROOT, "benchmarks", "dryrun_torch.jsonl")
-MOE = ("arctic-480b", "kimi-k2-1t-a32b")
 
 
 class _DataModel:
@@ -60,8 +59,10 @@ def test_sweep_covers_all_cells_on_both_meshes():
 
 def test_sweep_records_have_roofline_terms():
     """Every ``ok`` record has the roofline terms, a train cell the
-    optimizer's state; every arctic and kimi record holds exactly its
-    specs' weights (the experts' hidden width over "data")."""
+    optimizer's state; every record holds exactly its specs' weights
+    (the experts' hidden width over "data"; every block's heads over
+    "model", the recurrent blocks' too), a train cell its specs'
+    state."""
     for key, r in _records().items():
         if r.get("status") != "ok":
             continue
@@ -71,12 +72,10 @@ def test_sweep_records_have_roofline_terms():
         assert r["t_memory_s"] > 0, key
         if r["kind"] == "train":
             assert r["state_bytes_per_device"] > 1e6, key
-        if r["arch"] in MOE:
-            assert r["param_bytes_per_device"] == \
-                r["param_bytes_by_specs"], key
-            if r["kind"] == "train":
-                assert r["state_bytes_per_device"] == \
-                    r["state_bytes_by_specs"], key
+        assert r["param_bytes_per_device"] == r["param_bytes_by_specs"], key
+        if r["kind"] == "train":
+            assert r["state_bytes_per_device"] == \
+                r["state_bytes_by_specs"], key
 
 
 def _spy_subprocess(monkeypatch):

@@ -37,6 +37,7 @@ their specs replicate the experts; the expert-parallel cases raise the
 count to 16 (``E16``), which the specs then shard over "model".
 """
 import dataclasses
+import math
 
 import jax
 import numpy as np
@@ -49,7 +50,8 @@ from repro.models.model import Model as RefModel
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.distributed import selftest
 from repro_torch.distributed.launch import spawn
-from repro_torch.models import sharding
+from repro_torch.launch.specs import state_bytes_by_specs
+from repro_torch.models import blocks, sharding
 from repro_torch.models.convert import load_jax_params
 from repro_torch.models.model import Leaf, Model
 
@@ -75,6 +77,7 @@ def _cfg(arch, **kw):
 
 def _assert_parity(outs):
     for o in outs:
+        assert {"worst_grad_leaf", "worst_leaf"} <= set(o), o
         assert o["loss_rel_err"] <= RTOL, o
         assert o["worst_grad_rel_norm"] <= RTOL, o
         assert o["worst_grad_err_over_max"] <= GRAD_MAX_RTOL, o
@@ -110,7 +113,7 @@ def test_tensor_parallel_step_equals_world_one(tmp_path, arch, mesh):
     _assert_parity(outs)
     for o in outs:
         assert o["param_bytes"] == o["spec_param_bytes"], o
-        assert o["not_the_share"] == o["gathered_at_step"] == [], o
+        assert o["not_the_share"] == [], o
         assert "model" not in o["leaf_gathers"], o
 
 
@@ -121,13 +124,16 @@ def test_tensor_parallel_step_equals_world_one(tmp_path, arch, mesh):
 def test_heads_that_do_not_split_are_gathered_at_use(tmp_path, heads,
                                                     gathered):
     """mistral smoke on a (1, 4) mesh with heads that do not split whole
-    over 4.  4 query heads over 2 K/V heads: each rank's one query head
-    reads one K/V head, so ``wq`` / ``wo`` stay tensor-parallel and
-    ``wk`` / ``wv`` are gathered at use (their gradients reduce-
-    scattered back).  2 query heads: all four leaves are gathered and
-    the attention is computed whole.  Either way the leaves stay sharded
-    in storage, each is gathered once a step (the smoke config does not
-    remat), and the step equals the world of one."""
+    over 4, computed on shards all the same (``blocks.heads_split``).  4
+    query heads over 2 K/V heads: each rank computes one query head and
+    the K/V head it reads, so ``wq`` / ``wo`` are used as stored and
+    ``wk`` / ``wv`` gathered at use and cut to that head (their gradients
+    reduce-scattered back).  2 query heads: ranks 1 and 3 compute one
+    each, ranks 0 and 2 none (their share of the row-parallel sum is
+    zeros), and all four leaves are gathered at use and cut.  Either way
+    the leaves stay sharded in storage, each is gathered once a step
+    (the smoke config does not remat), and the step equals the world of
+    one."""
     cfg = _cfg("mistral-nemo-12b", n_heads=heads[0], n_kv_heads=heads[1])
     outs = _spawn(tmp_path, selftest.sharded_step_parity, 4,
                   (cfg, (1, 4), 4, 32, 1))
@@ -135,22 +141,36 @@ def test_heads_that_do_not_split_are_gathered_at_use(tmp_path, heads,
     got = outs[0]["leaf_gathers"]["model"]
     assert got == {f"blocks.{i}.attn.{w}": 1 for i in range(2)
                    for w in gathered}
-    assert outs[0]["param_bytes"] == outs[0]["spec_param_bytes"]
+    for r, o in enumerate(outs):
+        assert o["param_bytes"] == o["spec_param_bytes"]
+        lo, hi = o["heads"]["_AttnParams"]["heads"]
+        assert (lo, hi) == (heads[0] * r // 4, heads[0] * (r + 1) // 4)
+        assert o["heads"]["_AttnParams"]["leaves"]["wq"] == [
+            64, heads[0] * 16 // 4]
 
 
 def test_recurrent_leaves_are_held_whole_and_gathered_at_step(tmp_path):
-    """xlstm smoke on (1, 2): the recurrent blocks compute whole; their
-    "model" leaves are held whole and their updated slices gathered
-    over "model" by the step; the vocab-parallel tied embedding is
-    sharded; the step equals the world of one."""
+    """xlstm smoke on (1, 2): the recurrent blocks compute on shards,
+    each rank two of the 4 heads of every mLSTM and sLSTM block; every
+    leaf is held as the specs' share (none whole, none gathered by the
+    step); the leaves whose slice is not the part the rank's heads read
+    (``up``'s x half and its z channels, ``wx``'s four gates, ``r``
+    sliced by its output width, ``out`` by its columns) are gathered at
+    use, once a step; the vocab-parallel tied embedding is sharded; the
+    step equals the world of one."""
     cfg = _cfg("xlstm-350m")
     outs = _spawn(tmp_path, selftest.sharded_step_parity, 2,
                   (cfg, (1, 2), 4, 32, 1))
     _assert_parity(outs)
-    o = outs[0]
-    assert o["not_the_share"] == o["gathered_at_step"] != []
-    assert set(o["leaf_gathers"]["model"]) == set(o["gathered_at_step"])
-    assert "embed" not in o["gathered_at_step"]
+    for r, o in enumerate(outs):
+        assert o["param_bytes"] == o["spec_param_bytes"]
+        assert o["not_the_share"] == []
+        assert {k: v["heads"] for k, v in o["heads"].items()} == {
+            "MlstmBlock": [2 * r, 2 * r + 2],
+            "SlstmBlock": [2 * r, 2 * r + 2]}
+    assert outs[0]["leaf_gathers"]["model"] == {
+        f"blocks.{i}.{w}": 1 for i in range(4)
+        for w in (("up",) if i % 2 == 0 else ("wx", "r", "out"))}
 
 
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "xlstm-350m"])
@@ -229,41 +249,58 @@ def test_shard_of_a_width_that_does_not_split_raises():
         sharding.shard_of(torch.zeros(4, 8), 1, 0, 3)
 
 
-#: the configs whose attention heads do not split whole over a "model"
-#: dimension of 16, which then gather attention leaves at use: only
-#: ``wk`` / ``wv`` where the query heads split and each rank's read one
-#: K/V head (8 K/V heads), all four where the query heads do not split
-#: (56, 28 and 36 of them); xlstm has no attention leaf
-KV_AT_16 = {"command-r-35b", "gemma3-12b", "kimi-k2-1t-a32b",
-            "mistral-nemo-12b"}
-ALL_AT_16 = {"arctic-480b", "qwen2-vl-7b", "starcoder2-7b"}
-#: the configs whose recurrent blocks hold "model" leaves whole
-STEP_AT_16 = {"xlstm-350m", "zamba2-2.7b"}
+#: the leaves each config gathers at use at a "model" dimension of 16,
+#: by kind: ``wk`` / ``wv`` where the K/V heads do not split (8 of
+#: them), all four attention leaves where the query heads split unevenly
+#: (56, 28 and 36 of them), ``in_proj`` of Mamba-2 (its packed
+#: ``[z | x | B C | dt]``), every leaf of the xLSTM's blocks but the
+#: norm and the gates (4 heads of 512 / 256 over 16 ranks); seamless's 16
+#: query and K/V heads split whole
+ALL_AT_16 = {"wq", "wk", "wv", "wo"}
+USE_AT_16 = {"arctic-480b": ALL_AT_16, "command-r-35b": {"wk", "wv"},
+             "gemma3-12b": {"wk", "wv"}, "kimi-k2-1t-a32b": {"wk", "wv"},
+             "mistral-nemo-12b": {"wk", "wv"}, "qwen2-vl-7b": ALL_AT_16,
+             "seamless-m4t-large-v2": set(), "starcoder2-7b": ALL_AT_16,
+             "xlstm-350m": {"up", "wq", "wk", "wv", "down", "wx", "r",
+                            "out"},
+             "zamba2-2.7b": {"in_proj"}}
 
 
 @pytest.mark.parametrize("arch", sorted(REF_ARCHS))
 def test_layout_at_the_production_degree(arch):
-    """``Model.layout`` on the full config at tp (0, 16), built on
-    ``meta``: the one rule of what is gathered whole, pinned."""
+    """``Model.layout`` on the full config at tp (0, 16) and (15, 16),
+    built on ``meta``: the one rule of what is gathered at use, pinned;
+    no leaf is held whole where its spec names "model", so each rank's
+    parameters are the specs' share; every block computes at most
+    ``⌈h/16⌉`` of its ``h`` heads, the last rank exactly that many."""
     cfg = get_config(arch)
-    m = Model(cfg, device="meta", tp=(0, 16))
-    layout = m.layout()
-    use = {n for n, leaf in layout.items() if leaf.gather == "use"}
-    step = {n for n, leaf in layout.items() if leaf.gather == "step"}
-    kinds = {n.rsplit(".", 1)[1] for n in use}
-    want = {"wk", "wv"} if arch in KV_AT_16 else \
-        {"wq", "wk", "wv", "wo"} if arch in ALL_AT_16 else set()
-    assert kinds == want
-    assert all(".attn." in n or ".xattn." in n for n in use)
-    assert bool(step) == (arch in STEP_AT_16)
-    for n, leaf in layout.items():
-        if ".moe.w" in n and n[-2:] != "wg":
-            assert leaf.data_dim is not None and leaf.shard_dim == 0, n
-        if n in ("embed", "unembed"):
-            assert leaf.shard_dim is not None and leaf.gather is None, n
     whole = dict(Model(cfg, device="meta").named_parameters())
-    assert all(p.device.type == "meta" for p in m.parameters())
-    assert m.whole_shapes() == {n: tuple(p.shape) for n, p in whole.items()}
+    for rank in (0, 15):
+        m = Model(cfg, device="meta", tp=(rank, 16))
+        layout = m.layout()
+        assert {leaf.gather for leaf in layout.values()} <= {None, "use"}
+        use = {n for n, leaf in layout.items() if leaf.gather == "use"}
+        assert {n.rsplit(".", 1)[1] for n in use} == USE_AT_16[arch]
+        for n, leaf in layout.items():
+            assert (leaf.shard_dim is None) == (
+                sharding.model_dim(leaf.spec) is None), n
+            if ".moe.w" in n and n[-2:] != "wg":
+                assert leaf.data_dim is not None and leaf.shard_dim == 0, n
+            if n in ("embed", "unembed"):
+                assert leaf.shard_dim is not None and leaf.gather is None, n
+        for name, (lo, hi) in m.computed_heads().items():
+            mod = m.get_submodule(name)
+            h = blocks._mamba_dims(cfg)[2] if isinstance(
+                mod, blocks.Mamba2Block) else cfg.n_heads
+            assert (lo, hi) == blocks.heads_split(h, 16, rank), name
+            assert hi - lo <= math.ceil(h / 16), name
+            if rank == 15:
+                assert hi - lo == math.ceil(h / 16), name
+        assert sum(p.numel() * p.element_size() for p in m.parameters()) \
+            == state_bytes_by_specs(m, {"data": 1, "model": 16})[0]
+        assert all(p.device.type == "meta" for p in m.parameters())
+        assert m.whole_shapes() == {n: tuple(p.shape)
+                                    for n, p in whole.items()}
 
 
 def test_a_sharded_model_runs_only_inside_its_group():
