@@ -103,11 +103,16 @@ where there is no CUDA device or the port's package is missing.  It
     with one card, two gloo ranks sharing it: a (1, 2) tensor-parallel
     mesh (qwen2-vl, 2 layers) and a (2, 1) data-parallel MoE mesh (arctic,
     1 layer of 8 experts, each rank holding every expert at half its
-    hidden width: ``w1`` ``[8, 7168, 2432]``), fp32, each against the
-    world of one; with four or more cards, one NCCL rank a card: the
+    hidden width: ``w1`` ``[8, 7168, 2432]``; the tokens gathered over
+    "data"), the same mesh at a width of 512 where the rule gathers the
+    experts' slices instead (the weights form), fp32, each against the
+    world of one, and arctic's routed FFN at full width on (2, 1) in both
+    width forms on the same rows, the weights form against the tokens
+    form (seconds, peak memory, each rank's expert rows); with four or
+    more cards, one NCCL rank a card: the
     8-layer qwen2-vl on (1, 4) and (2, 2) against one card, the MoE on
-    (2, 2) (16 experts, 8 a rank at half their width) against one card,
-    arctic at its full width and 128 experts, 2 layers, bf16, on (2, 2)
+    (2, 2) (16 experts, 8 a rank at half their width) in each width form
+    against one card, arctic at its full width and 128 experts, 2 layers, bf16, on (2, 2)
     (64 experts a rank at half their width), then ``mistral-nemo-12b`` at
     its full 40 layers on (1, 4) (peak memory, ms a step, collective
     bytes);
@@ -3315,16 +3320,40 @@ DIST_BIG = dict(mesh=(1, 4), seq=4096, batch=1, steps=4, warmup=1)
 # (the mLSTM's chunk cut with it from 256); at full depth (24 layers, seq
 # 256) its sharded steps alone must give finite losses, 1 step
 DIST_XLSTM = dict(arch="xlstm-350m", layers=1, seq=64, chunk=64)
+# the experts' width split's weights form (``moe.width_form``: the
+# experts' slices gathered whole, the rank's own tokens kept), on arctic
+# cut to a width of 512 (8 heads of 64, the dense residual 512 wide, a
+# vocabulary of 8,192) and experts 64 wide, 1 layer, fp32, at
+# DIST_SHARED_STEP's batch 2 x 512 (one row a data rank): by the rule
+# 9.50 MB of tokens against 6.29 MB of expert slices a layer
+# (``remat="full"``), so the rule gathers the slices; at full width it
+# would need ~26,000 rows a rank.  (At experts 512 wide and seq 4,096
+# the world of one's 8,192 tokens make the CPU's embedding backward
+# sum in a varying order: the first update's prediction misses by up to
+# 8e-6 of ``embed``'s largest element, in either form.)
+DIST_MOE_NARROW = dict(d_model=512, n_heads=8, n_kv_heads=8, head_dim=64,
+                       d_ff=512, moe_d_ff=64, vocab_size=8192)
 DIST_SHARED = dict(tp=dict(arch=VLM_ARCH, mesh=(1, 2), layers=2,
                            vocab=8192),
                    moe=dict(arch="arctic-480b", mesh=(2, 1), layers=1,
-                            experts=8),
+                            experts=8, form="tokens"),
                    zamba2=dict(arch="zamba2-2.7b", mesh=(1, 2), layers=1,
                                floor_k=4.0),
                    xlstm=dict(DIST_XLSTM, mesh=(1, 2)),
                    heads=dict(arch=VLM_ARCH, mesh=(1, 8), layers=1,
-                              vocab=8192, steps=1))
+                              vocab=8192, steps=1),
+                   moe_weights=dict(arch="arctic-480b", mesh=(2, 1),
+                                    layers=1, experts=8,
+                                    narrow=DIST_MOE_NARROW, form="weights"))
 DIST_SHARED_STEP = dict(batch=2, seq=512, steps=2)
+# the two width forms at arctic's full width (d_model 7,168, 8 experts
+# 4,864 wide, fp32) on (2, 1), forced on the same rows: the first block's
+# routed FFN forward and backward (``selftest.moe_width_forms``) on 2 x
+# 4,096 tokens (one sequence a data rank; the rule would take the
+# weights form from ~26,000 rows a rank), the weights form held against
+# the tokens form at DIST_LOSS_RTOL / DIST_GRAD_RTOL / DIST_GRAD_MAX
+DIST_MOE_FORMS = dict(arch="arctic-480b", mesh=(2, 1), layers=1, experts=8,
+                      batch=2, seq=4096)
 DIST_XLSTM_DEEP = dict(arch="xlstm-350m", mesh=(1, 2), seq=256, steps=1)
 # zamba2's fp32 floor lies above those bounds: its Mamba-2 per-head fp32
 # scalars (``a_log``, ``d_skip``, ``dt_bias``) take gradients summed over
@@ -3342,7 +3371,12 @@ DIST_XLSTM_DEEP = dict(arch="xlstm-350m", mesh=(1, 2), seq=256, steps=1)
 # width and its 128 experts, 2 layers, bf16 (bf16 moments, as
 # ``optimizer.moment_dtype_for`` takes them for arctic), on (2, 2): 64
 # experts a rank at d_ff / 2, 6.69 GB of expert weights a layer
-DIST_MOE_MESH = dict(arch="arctic-480b", mesh=(2, 2), layers=1, experts=16)
+DIST_MOE_MESH = dict(arch="arctic-480b", mesh=(2, 2), layers=1, experts=16,
+                     form="tokens")
+# and the weights form of the same split on (2, 2): DIST_MOE_NARROW's
+# arctic with 16 experts (8 a rank over "model", as on one card)
+DIST_MOE_WEIGHTS_MESH = dict(DIST_SHARED["moe_weights"], mesh=(2, 2),
+                             experts=16)
 DIST_MOE_BIG = dict(arch="arctic-480b", mesh=(2, 2), layers=2, seq=1024,
                     batch=2, steps=3, warmup=1)
 # every card visible: xlstm at full width in fp32 on (1, 4) (one head a
@@ -3394,7 +3428,7 @@ def _parity_checked(outs, what, floor_k=0.0):
                              "first_step_leaf_rel_norm", "param_bytes",
                              "spec_param_bytes", "leaf_gathers",
                              "coll_bytes", "coll_bytes_by_axis",
-                             "moe_width_forms")}
+                             "moe_width_forms", "step_peak_bytes")}
     _shares_checked(outs, what)
     # the copies of leaves held alike each rank held to rank 0's, bit for
     # bit; each rank's heads and the shapes of its leaves, by block kind
@@ -3440,9 +3474,10 @@ def _expert_shapes_checked(outs, cfg, mesh, what):
 def dist_shared_card(device_type="cuda"):
     """Gloo ranks share the one card: ``selftest.sharded_step_parity`` of
     each mesh of ``DIST_SHARED`` (a (1, 2) tensor-parallel mesh, a (2, 1)
-    data-parallel MoE mesh, the recurrent blocks and an uneven head split
-    over "model") against the world of one, in fp32; then
-    ``DIST_XLSTM_DEEP``'s sharded steps alone (``selftest.sharded_losses``):
+    data-parallel MoE mesh in each width form, the recurrent blocks and
+    an uneven head split over "model") against the world of one, in
+    fp32; arctic's routed FFN at full width in both width forms
+    (:func:`_moe_forms`); then ``DIST_XLSTM_DEEP``'s sharded steps alone (``selftest.sharded_losses``):
     finite losses, every rank's alike."""
     from repro_torch.configs import get_config
     from repro_torch.distributed import selftest
@@ -3467,6 +3502,8 @@ def dist_shared_card(device_type="cuda"):
         if "experts" in run:
             out[name]["expert_shapes"] = _expert_shapes_checked(
                 outs, cfg, run["mesh"], f"{name} {run['mesh']}")
+        _forms_checked(outs, run, f"{name} {run['mesh']}")
+    out["moe_forms"] = _moe_forms(device_type)
     run = DIST_XLSTM_DEEP
     cfg = _fp32(get_config(run["arch"]))
     t0 = time.perf_counter()
@@ -3487,20 +3524,90 @@ def dist_shared_card(device_type="cuda"):
     return out
 
 
+def _moe_forms(device_type):
+    """``DIST_MOE_FORMS`` on gloo ranks sharing the card: the weights
+    form's loss and gradients against the tokens form's on the same rows,
+    within the bounds; every dispatch in its forced form, the weights
+    form gathering each expert leaf once; for each form the seconds, the
+    peak memory and the "data" bytes of each rank beside the rule's
+    count; and the spread of the weights form's expert rows: each rank's
+    busiest expert against ``⌈cap/D⌉``, the even share the dry-run counts
+    on ``meta``, under this routing (random weights from seed 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import selftest
+    from repro_torch.distributed.launch import spawn
+    from repro_torch.models import moe
+    run = DIST_MOE_FORMS
+    cfg = _fp32(get_config(run["arch"]), **_case_cuts(run))
+    mesh, d = run["mesh"], run["mesh"][0]
+    what = f"moe forms {mesh} at full width"
+    t0 = time.perf_counter()
+    outs = spawn(selftest.moe_width_forms, mesh[0] * mesh[1],
+                 (cfg, mesh, run["batch"], run["seq"]),
+                 device_type=device_type, backend="gloo", timeout=900.0)
+    bounds = dict(loss_rel_err=DIST_LOSS_RTOL, grad_rel_norm=DIST_GRAD_RTOL,
+                  grad_err_over_max=DIST_GRAD_MAX)
+    worst = [{f: max(o["figures"].get(f, {}).values(), default=0.0)
+              for f in bounds} for o in outs]
+    experts = {"data": {f"blocks.0.moe.{n}": 1 for n in ("w1", "w3", "w2")}}
+    for q, o in enumerate(outs):
+        check(all(worst[q][f] <= b for f, b in bounds.items()),
+              f"dist: {what}: rank {q}: the weights form against the "
+              f"tokens form {worst[q]}, bounds {bounds}")
+        check(all(o[f]["forms"] == {f: 1} for f in moe.FORMS) and
+              o["weights"]["leaf_gathers"] == experts and
+              o["tokens"]["leaf_gathers"] == {},
+              f"dist: {what}: rank {q}: forms "
+              f"{[o[f]['forms'] for f in moe.FORMS]}, leaves gathered "
+              f"{[o[f]['leaf_gathers'] for f in moe.FORMS]}")
+    args = (run["batch"] // d * run["seq"], cfg.d_model, cfg.moe_d_ff,
+            cfg.n_experts // mesh[1], cfg.top_k, d, 4, 4, True)
+    rule = moe.width_form_bytes(*args)
+    cap = outs[0]["tokens"]["expert_rows"]      # flat: one group
+    even = -(-cap // d)
+    rows = [o["weights"]["expert_rows"] for o in outs]
+    return dict(
+        arch=run["arch"], layers=cfg.n_layers, experts=cfg.n_experts,
+        d_model=cfg.d_model, moe_d_ff=cfg.moe_d_ff, mesh=list(mesh),
+        batch=run["batch"], seq=run["seq"], dtype="float32",
+        worst_by_rank=worst, bounds=bounds,
+        by_form={f: dict(
+            seconds=[o[f]["seconds"] for o in outs],
+            step_peak_bytes=[o[f]["step_peak_bytes"] for o in outs],
+            held_bytes=[o[f]["held_bytes"] for o in outs],
+            data_bytes=[o[f]["by_axis"].get("data", 0) for o in outs],
+            rule_bytes=rule[f], expert_rows=[o[f]["expert_rows"] for o in outs])
+            for f in moe.FORMS},
+        rule_form=moe.width_form(*args), cap=cap, even_rows=even, weights_rows_by_rank=rows,
+        busiest_over_even=max(rows) / even,
+        seconds=time.perf_counter() - t0)
+
+
 def _case_cuts(run):
     """A case's cuts of its config: experts, super-blocks, vocabulary,
-    the SSM's chunk."""
-    return {k: run[v] for k, v in (("n_experts", "experts"),
-                                   ("n_super", "layers"),
-                                   ("vocab_size", "vocab"),
-                                   ("ssm_chunk", "chunk")) if v in run}
+    the SSM's chunk, and its ``narrow`` widths."""
+    return {**{k: run[v] for k, v in (("n_experts", "experts"),
+                                      ("n_super", "layers"),
+                                      ("vocab_size", "vocab"),
+                                      ("ssm_chunk", "chunk")) if v in run},
+            **run.get("narrow", {})}
+
+
+def _forms_checked(outs, run, what):
+    """Where ``run`` names the MoE's width ``form``, every rank's every
+    dispatch took it."""
+    if "form" in run:
+        forms = [o["moe_width_forms"] for o in outs]
+        check(all(set(f) == {run["form"]} for f in forms),
+              f"dist: {what}: width forms {forms}, want {run['form']}")
 
 
 def dist_every_card(device, device_type="cuda"):
     """Four NCCL ranks, one a card: the 8-layer qwen2-vl in fp32 on each
     mesh of ``DIST_MESHES`` against the un-meshed run (every step's
-    loss); the MoE on ``DIST_MOE_MESH`` against the world of one and
-    arctic at full width (:func:`_moe_big`); the recurrent blocks
+    loss); the MoE on ``DIST_MOE_MESH`` (the tokens form) and on
+    ``DIST_MOE_WEIGHTS_MESH`` (the weights form) against the world of
+    one, and arctic at full width (:func:`_moe_big`); the recurrent blocks
     (:func:`_recurrent_every_card`); then 40-layer mistral-nemo-12b on
     ``DIST_BIG["mesh"]`` for a few steps (:func:`_mesh_train`): each
     rank's peak memory, the step time, the collectives' bytes a step by
@@ -3542,11 +3649,25 @@ def dist_every_card(device, device_type="cuda"):
     outs = spawn(selftest.sharded_step_parity, 4,
                  (mcfg, run["mesh"], st["batch"], st["seq"], st["steps"]),
                  device_type=device_type, timeout=900.0)
+    _forms_checked(outs, run, f"moe {run['mesh']}")
     out["moe_parity"] = dict(
         arch=run["arch"], layers=run["layers"], experts=run["experts"],
         **_parity_checked(outs, f"moe {run['mesh']}"),
         expert_shapes=_expert_shapes_checked(outs, mcfg, run["mesh"],
                                              f"moe {run['mesh']}"),
+        seconds=time.perf_counter() - t0)
+    run = DIST_MOE_WEIGHTS_MESH
+    wcfg = _fp32(get_config(run["arch"]), **_case_cuts(run))
+    what = f"moe weights form {run['mesh']}"
+    t0 = time.perf_counter()
+    outs = spawn(selftest.sharded_step_parity, 4,
+                 (wcfg, run["mesh"], st["batch"], st["seq"], st["steps"]),
+                 device_type=device_type, timeout=900.0)
+    _forms_checked(outs, run, what)
+    out["moe_weights"] = dict(
+        arch=run["arch"], layers=run["layers"], experts=run["experts"],
+        seq=st["seq"], **run["narrow"], **_parity_checked(outs, what),
+        expert_shapes=_expert_shapes_checked(outs, wcfg, run["mesh"], what),
         seconds=time.perf_counter() - t0)
     if device_type == "cuda":
         torch.cuda.synchronize()
@@ -3603,24 +3724,36 @@ def _mesh_train(cfg, run, device_type):
         coll_calls_per_step=reps[0]["coll_calls_per_step"],
         coll_bytes_by_axis_per_step=reps[0]["coll_bytes_by_axis_per_step"],
         leaf_gathers=reps[0]["leaf_gathers"],
+        moe_width_forms=reps[0]["moe_width_forms"],
         seconds=time.perf_counter() - t0)
 
 
 def _moe_big(device_type):
     """``DIST_MOE_BIG``: arctic at its full width on (2, 2), bf16
-    (:func:`_mesh_train`), with its expert leaves' shapes."""
+    (:func:`_mesh_train`), with its expert leaves' shapes and the width
+    form its shapes take (``moe.width_form``: the tokens, the expert
+    slices being the larger by far; every dispatch must take it)."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.models import sharding
+    from repro_torch.models import moe, sharding
     run = DIST_MOE_BIG
     cfg = dataclasses.replace(get_config(run["arch"]), n_super=run["layers"])
     e = cfg.n_experts // (run["mesh"][1] if sharding.mdl(cfg.n_experts)
                           else 1)
     f = cfg.moe_d_ff // run["mesh"][0]
-    return dict(**_mesh_train(cfg, run, device_type),
-                expert_w1=[e, cfg.d_model, f],
-                expert_bytes_per_layer=3 * e * cfg.d_model * f * 2)
+    rule = (run["batch"] // run["mesh"][0] * run["seq"], cfg.d_model,
+            cfg.moe_d_ff, e, cfg.top_k, run["mesh"][0], 2, 2, True,
+            cfg.remat != "none")
+    out = dict(**_mesh_train(cfg, run, device_type),
+               expert_w1=[e, cfg.d_model, f],
+               expert_bytes_per_layer=3 * e * cfg.d_model * f * 2,
+               moe_width_form=moe.width_form(*rule),
+               width_bytes_per_layer=moe.width_form_bytes(*rule))
+    check(set(out["moe_width_forms"]) == {out["moe_width_form"]},
+          f"dist: arctic on {run['mesh']}: width forms "
+          f"{out['moe_width_forms']}, the rule says {out['moe_width_form']}")
+    return out
 
 
 def _recurrent_every_card(device_type):

@@ -29,6 +29,7 @@ import math
 import shutil
 import sys
 import tempfile
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -138,7 +139,8 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
     leaves' shapes in the first module of each kind (:func:`_heads_report`),
     the leaves the sharded steps gathered whole, by axis, and the
     collectives' operand bytes of the sharded steps by kind and axis
-    (``sharding.stats``).  Every figure of every leaf is under
+    (``sharding.stats``), and on CUDA the rank's peak memory over the
+    sharded steps (``step_peak_bytes``).  Every figure of every leaf is under
     ``figures`` (:data:`FIGURES`).  The world of one runs, and is
     compared, on rank 0 alone, which broadcasts its figures; every other
     rank holds each copy of a leaf that ranks hold alike (a norm, a
@@ -204,6 +206,8 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
             if sharded else build_train_step(model, ocfg, state)
         sharding.stats.reset()
         moe.width_forms.clear()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         out = step(data)
         losses = [float(out["loss"])]
         step_one = sharding.stats.as_dict()     # the steps' own, not the
@@ -238,6 +242,9 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
                           coll_bytes=coll["bytes"],
                           moe_width_forms=dict(moe.width_forms),
                           coll_bytes_by_axis=coll["by_axis"],
+                          step_peak_bytes=(
+                              torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None),
                           heads=_heads_report(model, params))
         (runs if isinstance(kind, str) else nudged).append(
             (losses, grads, final))
@@ -247,20 +254,22 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
     return dict(mesh=list(shape), steps=steps, **figures[0], **report)
 
 
-def sharded_losses(cfg, shape: Tuple[int, int], batch: int = 4,
+def sharded_losses(cfg, shape: Tuple[int, ...], batch: int = 4,
                    seq: int = 32, steps: int = 1,
                    lr: float = 1e-3) -> Dict:
     """The sharded run of :func:`sharded_step_parity` alone (the same
     weights, batch and steps, no world of one: for a model too deep for
-    two fp32 orders of its sums to agree): its losses, this rank's
-    parameter bytes beside the specs' share, and its heads."""
+    two fp32 orders of its sums to agree), over a (data, model) mesh of
+    ``shape``, or a (pod, data, model) one where ``shape`` has three
+    sizes: its losses, this rank's parameter bytes beside the specs'
+    share, its heads, and the MoE dispatches by width form."""
     from ..launch.mesh import make_test_mesh
     from ..launch.steps import build_sharded_train_step, mesh_places
-    from ..models import sharding
+    from ..models import moe, sharding
     from ..models.model import Model
     from ..optim import optimizer as opt
     dev = _device()
-    mesh = make_test_mesh(shape, ("data", "model"))
+    mesh = make_test_mesh(shape, ("pod", "data", "model")[-len(shape):])
     data = _batch(cfg, batch, seq, dev)
     ocfg = opt.OptConfig(lr=lr, warmup_steps=1, total_steps=10)
     model = Model(cfg, device=dev, **mesh_places(mesh),
@@ -269,12 +278,103 @@ def sharded_losses(cfg, shape: Tuple[int, int], batch: int = 4,
     params = dict(model.named_parameters())
     step = build_sharded_train_step(model, ocfg, opt.init(params, ocfg),
                                     mesh)
+    moe.width_forms.clear()
     losses = [float(step(data)["loss"]) for _ in range(steps)]
     return dict(mesh=list(shape), steps=steps, losses=losses,
                 **_held(params, model.layout(),
                         sharding.mesh_axis(mesh, "model"),
                         sharding.mesh_axis(mesh, "data")),
-                heads=_heads_report(model, params))
+                heads=_heads_report(model, params),
+                moe_width_forms=dict(moe.width_forms))
+
+
+def moe_width_forms(cfg, shape: Tuple[int, int], batch: int = 4,
+                    seq: int = 32) -> Dict:
+    """The first block's routed FFN of ``cfg`` (weights from seed 0) on
+    this rank's rows of one numpy-drawn input ``[batch, seq, d]``, over a
+    (data, model) mesh of ``shape``, in each width form of
+    ``moe._dispatch`` (``moe.FORMS``), forward and backward of
+    ``sum(y · r) + aux`` (``r`` drawn alike): the figures of the
+    ``"weights"`` form against the ``"tokens"`` form (the loss; the
+    gradients of the input and of every leaf the rank holds, each
+    relative in norm and over its largest element, as
+    :func:`_figures`); for each form the collectives' operand bytes by
+    kind and axis, the leaves gathered whole by axis and name, the
+    dispatches by form, the rows each expert's products ran on
+    (``expert_rows``: the first ``bmm``'s middle dimension), the seconds
+    of each of two passes (the forms take turns, the first pass carrying
+    the set-up; the figures are the second's) and, on CUDA, the rank's
+    peak memory over the second (``step_peak_bytes``) beside what it held
+    as that pass began (``held_bytes``: the model, the input, the other
+    form's gradients)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from ..launch.mesh import make_test_mesh
+    from ..launch.steps import mesh_places
+    from ..models import moe, sharding
+    from ..models.layers import dtype_of
+    from ..models.model import Model
+    dev = _device()
+    mesh = make_test_mesh(shape, ("data", "model"))
+    dax = sharding.mesh_axis(mesh, "data")
+    axes = dict(model=sharding.mesh_axis(mesh, "model"), data=dax,
+                width=sharding.width_axis_of(mesh))
+    model = Model(cfg, device=dev, **mesh_places(mesh),
+                  generator=torch.Generator(device=dev).manual_seed(0))
+    ffn = model.blocks[0].moe
+    rng = np.random.default_rng(3)
+    x, r = (sharding.shard_of(torch.from_numpy(rng.standard_normal(
+        (batch, seq, cfg.d_model)).astype(np.float32)), 0, dax.rank,
+        dax.size).to(dev) for _ in range(2))
+    x = x.to(dtype_of(cfg.compute_dtype))
+    kw = dict(n_groups=cfg.moe_n_groups) if cfg.moe_grouped else {}
+    run = moe.moe_ffn_grouped if cfg.moe_grouped else moe.moe_ffn
+    rows = []
+
+    class _Rows(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.bmm.default:
+                rows.append(args[0].shape[1])
+            return func(*args, **(kwargs or {}))
+
+    out, runs = {}, {}
+    for form in moe.FORMS * 2:
+        leaves = {}
+        for n, p in ffn.named_parameters():
+            leaves[n] = p.detach().clone().requires_grad_(True)
+            leaves[n].leaf_name = p.leaf_name
+        xi = x.clone().requires_grad_(True)
+        sharding.stats.reset()
+        moe.width_forms.clear()
+        rows.clear()
+        cuda, held = dev.type == "cuda", None
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        with sharding.parallel(**axes):
+            with _Rows():
+                y, aux = run(xi, leaves, cfg.top_k, cfg.capacity_factor,
+                             expert_parallel=ffn.tp, form=form, **kw)
+            loss = (y.float() * r).sum() + aux
+            loss.backward()
+        if cuda:
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        grads = {"x": xi.grad, **{n: t.grad for n, t in leaves.items()}}
+        runs[form] = ([float(loss.detach())], grads, {})
+        out[form] = dict(expert_rows=rows[0], forms=dict(moe.width_forms),
+                         seconds=out.get(form, {}).get("seconds", []) +
+                         [seconds],
+                         step_peak_bytes=(torch.cuda.max_memory_allocated(
+                             dev) if cuda else None),
+                         held_bytes=held,
+                         **sharding.stats.as_dict())
+        del y, aux, loss, xi, leaves
+    out["figures"] = {f: v for f, v in _figures(
+        runs["tokens"], runs["weights"]).items() if v}
+    return out
 
 
 def _batch(cfg, batch: int, seq: int, dev) -> Dict[str, torch.Tensor]:
@@ -579,13 +679,14 @@ def mesh_train_report(cfg, shape: Tuple[int, int], kwargs: Dict) -> Dict:
     from ..launch.mesh import make_test_mesh
     from ..launch.specs import state_bytes_by_specs
     from ..launch.train import run_train
-    from ..models import sharding
+    from ..models import moe, sharding
     from ..optim.optimizer import OptConfig, moment_dtype_for
     dev = _device()
     mesh = make_test_mesh(shape, ("data", "model"))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     sharding.stats.reset()
+    moe.width_forms.clear()
     out = run_train(cfg, device=dev, mesh=mesh, log=lambda line: None,
                     **kwargs)
     steps = len(out["losses"])
@@ -607,7 +708,8 @@ def mesh_train_report(cfg, shape: Tuple[int, int], kwargs: Dict) -> Dict:
         coll_calls_per_step={k: v / steps for k, v in coll["calls"].items()},
         coll_bytes_by_axis_per_step={k: v / steps for k, v in
                                      coll["by_axis"].items()},
-        leaf_gathers={a: len(c) for a, c in coll["leaf_gathers"].items()})
+        leaf_gathers={a: len(c) for a, c in coll["leaf_gathers"].items()},
+        moe_width_forms=dict(moe.width_forms))
 
 
 def check_sharded_train_step() -> Dict:

@@ -49,10 +49,21 @@ The record keeps the reference's JSONL keys (``flops_per_device``,
 ``bytes_per_device``, ``coll_<kind>``, ``coll_total``,
 ``state_bytes_per_device``, ``t_compute_s``, ``t_memory_s``,
 ``t_collective_s``, ``bottleneck``, ``model_flops_total``,
-``useful_flops_ratio``), with the roofline terms against
+``useful_flops_ratio``), with ``moe_width_form`` (what the MoE layers
+sent over the experts' width axis, ``moe.width_form``'s choice), and the
+roofline terms against
 ``core.accel.H100_SXM``: a collective over a mesh axis whose ranks share
 one 8-GPU node moves at NVLink's rate, one that spans nodes (both axes of
-the production meshes) at the per-GPU inter-node rate.
+the production meshes) at the per-GPU inter-node rate.  In the weights
+form (a record with ``moe_rows_balanced``) every rank's expert rows are
+counted alike: ``cap`` a group where its groups are its own, and where
+data ranks share a group's slots (the flat dispatch, or groups spanning
+ranks) ``⌈cap/D⌉`` an expert (D the width axis's size), its share were
+the slots kept evenly, since a rank computes its own kept slots and
+``meta`` tensors cannot count them.  ``flops_per_device`` and
+``t_compute_s`` are then the balanced figures: under real routing the
+rank whose slots come first in the batch's order (data rank 0) may
+compute up to D times that expert work.
 ``state_bytes_per_device`` is what the rank really allocated (parameters
 and moments, or parameters and cache), beside ``state_bytes_by_specs``,
 the specs' share (the reference's analytic figure: parameters and
@@ -164,7 +175,7 @@ def run_cell(arch: str, shape: Union[str, Any], multi_pod: bool,
     from ..launch import specs as specs_lib
     from ..launch.mesh import make_production_mesh
     from ..launch.steps import build_sharded_train_step, mesh_places
-    from ..models import sharding
+    from ..models import moe, sharding
     from ..models.model import Model
     from ..optim import optimizer as opt_lib
     from torch.utils.flop_counter import FlopCounterMode
@@ -236,6 +247,7 @@ def run_cell(arch: str, shape: Union[str, Any], multi_pod: bool,
 
             t1 = time.time()
             sharding.stats.reset()
+            moe.width_forms.clear()
             counter = ByteCounter()
             with FlopCounterMode(display=False) as flops, counter.mode:
                 run()
@@ -258,6 +270,10 @@ def run_cell(arch: str, shape: Union[str, Any], multi_pod: bool,
             rec["coll_by_axis"] = coll["by_axis"]
             rec["leaf_gathers"] = {a: len(c) for a, c in
                                    coll["leaf_gathers"].items()}
+            if moe.width_forms:         # what went over the width axis
+                rec["moe_width_form"] = "+".join(sorted(moe.width_forms))
+                if "weights" in moe.width_forms:
+                    rec["moe_rows_balanced"] = True
             held = float(sum(p.numel() * p.element_size()
                              for p in model.parameters()))
             rest = float(sum(t.numel() * t.element_size() for t in extra))

@@ -537,14 +537,14 @@ class MoeBlock(nn.Module):
     def _ffn(self, h: torch.Tensor, grouped: bool):
         cfg = self.cfg
         w = dict(self.moe.named_parameters())
+        kw = dict(expert_parallel=self.moe.tp, remat=cfg.remat != "none")
         if grouped:
             y, aux = moe_lib.moe_ffn_grouped(h, w, cfg.top_k,
                                              cfg.capacity_factor,
-                                             cfg.moe_n_groups,
-                                             expert_parallel=self.moe.tp)
+                                             cfg.moe_n_groups, **kw)
         else:
             y, aux = moe_lib.moe_ffn(h, w, cfg.top_k, cfg.capacity_factor,
-                                     expert_parallel=self.moe.tp)
+                                     **kw)
         if self.dense is not None:
             y = y + _mlp(h, self.dense)
         return y, aux

@@ -46,14 +46,16 @@ the lower ranks that share a group, so it keeps and drops exactly the
 experts sharded over "model": every rank routes from the gathered
 logits, runs only its own experts, and one all-reduce adds up the
 combine.  Under a width axis each rank holds its slice of the experts'
-hidden width and computes every data rank's slots on it
-(:func:`_dispatch`).  With no axis declared all of this is the
-single-device code.
+hidden width, and each call takes the cheaper of two exchanges over the
+axis (:func:`width_form`): the ``"tokens"`` form computes every data
+rank's slots on the slice, the ``"weights"`` form gathers the slices
+whole and computes the rank's own slots (:func:`_dispatch`).  With no
+axis declared all of this is the single-device code.
 """
 from __future__ import annotations
 
 import collections
-from typing import List, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -61,9 +63,11 @@ import torch.nn.functional as F
 from . import sharding
 
 #: the dispatches run under a width axis, by what went over it
-#: (``"tokens"``, or ``"replicated"``: nothing, the rows being the same
-#: on every width rank)
+#: (``"tokens"``, ``"weights"``, or ``"replicated"``: nothing, the rows
+#: being the same on every width rank)
 width_forms: collections.Counter = collections.Counter()
+#: the forms :func:`width_form` chooses between
+FORMS = ("tokens", "weights")
 
 
 def moe_params_shape(d_model: int, n_experts: int, d_ff: int):
@@ -129,6 +133,45 @@ def _positions(top_i: torch.Tensor, n_experts: int
     return flat_pos, pos[:, -1] + 1
 
 
+def width_form_bytes(rows: int, d: int, d_ff: int, n_local: int,
+                     top_k: int, width: int, act_bytes: int, w_bytes: int,
+                     train: bool = False, remat: bool = False
+                     ) -> Dict[str, int]:
+    """The bytes one layer's routed FFN moves over a width axis of
+    ``width`` ranks in each form, counted as :data:`sharding.stats`
+    counts them (each collective's operand), for a rank of ``rows``
+    tokens and ``n_local`` experts of hidden width ``d_ff``
+    (``act_bytes`` / ``w_bytes``: an activation's and a weight's element
+    size):
+
+    * ``"tokens"``: the tokens (``rows·d``), their combine weights (fp32)
+      and their experts, positions and keep masks (int64) gathered, the
+      partial outputs of every width rank's rows sum-scattered
+      (``width·rows·d``); backward, the converse of each;
+    * ``"weights"``: the rank's slices of ``w1``, ``w3`` and ``w2``
+      gathered (``3·n_local·d·d_ff/width``); backward, their gradients
+      reduce-scattered (``width`` times that).
+
+    Without ``train`` only the forward counts; with ``remat`` the
+    forward's collectives run again in the backward's recompute."""
+    gathered = rows * (d * act_bytes + top_k * 4 + 3 * top_k * 8)
+    scattered = width * rows * d * act_bytes
+    slices = 3 * n_local * d * (d_ff // width) * w_bytes
+    fwd = dict(tokens=gathered + scattered, weights=slices)
+    bwd = dict(tokens=width * rows * (d * act_bytes + top_k * 4) +
+               rows * d * act_bytes, weights=width * slices)
+    passes = 2 if train and remat else 1
+    return {f: passes * fwd[f] + (bwd[f] if train else 0) for f in FORMS}
+
+
+def width_form(*args, **kwargs) -> str:
+    """The form of :func:`width_form_bytes` (same arguments) that moves
+    fewer bytes, ``"tokens"`` on a tie.  It reads shapes only, so every
+    rank of the axis takes the same form with no collective."""
+    b = width_form_bytes(*args, **kwargs)
+    return "weights" if b["weights"] < b["tokens"] else "tokens"
+
+
 def _width_groups(g: int, share: int, width: sharding.Axis) -> List[int]:
     """The buffer group of each of the ``width.size · g`` groups the
     width gather brings together (every member's ``g`` in member order),
@@ -146,7 +189,8 @@ def _width_groups(g: int, share: int, width: sharding.Axis) -> List[int]:
 
 def _dispatch(xg: torch.Tensor, w: Mapping[str, torch.Tensor], top_k: int,
               cap: int, ranks_per_group: int = 1,
-              expert_parallel: bool = False
+              expert_parallel: bool = False, remat: bool = False,
+              form: Optional[str] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The routed FFN on this rank's groups ``xg [G, Tg, d]`` at ``cap``
     slots per expert and group -> ``(y [G, Tg, d], aux)``; ``w`` holds
@@ -163,15 +207,27 @@ def _dispatch(xg: torch.Tensor, w: Mapping[str, torch.Tensor], top_k: int,
     partial sums are added up over "model".
 
     Under a width axis (:func:`sharding.width_axis`) the experts' leaves
-    are this rank's slice of their hidden width ``d_ff / D``.  Every
-    width rank's tokens and their routing are gathered over the axis (the
-    flat form's slot positions are the whole batch's, disjoint between
-    ranks) and dispatched into the buffers of the groups they belong to,
-    the SwiGLU runs on the slice (a partial sum of each output), and the
-    combined partial outputs are summed back to the rank that owns each
-    row (:func:`sharding.scatter_over_width`).  Where every width rank
-    holds the same rows (the batch replicated), nothing is gathered and
-    the partial outputs are all-reduced."""
+    are this rank's slice of their hidden width ``d_ff / D``, and ``form``
+    (by default :func:`width_form` of the shapes; ``remat``: the block's
+    forward runs again in the backward) says what goes over the axis:
+
+    * ``"tokens"``: every width rank's tokens and their routing are
+      gathered (the flat form's slot positions are the whole batch's,
+      disjoint between ranks) and dispatched into the buffers of the
+      groups they belong to, the SwiGLU runs on the slice (a partial sum
+      of each output), and the combined partial outputs are summed back
+      to the rank that owns each row (:func:`sharding.scatter_over_width`);
+    * ``"weights"``: the slices are gathered whole (their gradients
+      reduce-scattered back) and the rank runs the whole SwiGLU on its
+      own kept slots alone, in buffers of as many rows an expert as it
+      keeps there (``⌈cap/D⌉`` on ``meta``, which cannot count them)
+      where its group's slots are shared with other ranks, of ``cap``
+      where the group is its own.
+
+    Where every width rank holds the same rows (the batch replicated),
+    nothing is gathered and the partial outputs are all-reduced."""
+    if form is not None and form not in FORMS:
+        raise ValueError(f"unknown width form {form!r}: one of {FORMS}")
     g, tg, d = xg.shape
     data = sharding.data_axis()
     width = sharding.width_axis()
@@ -196,7 +252,9 @@ def _dispatch(xg: torch.Tensor, w: Mapping[str, torch.Tensor], top_k: int,
 
     flat_e = top_i.reshape(g, tg * top_k)
     flat_pos, group_counts = _positions(top_i, e)
-    if data is not None and ranks_per_group > 1:
+    own_pos = flat_pos
+    shared = data is not None and ranks_per_group > 1
+    if shared:
         every = sharding.all_gather(group_counts[None], data)  # [D, G, E]
         lo = data.rank - data.rank % ranks_per_group
         below = every[lo:data.rank].sum(dim=0)
@@ -211,14 +269,34 @@ def _dispatch(xg: torch.Tensor, w: Mapping[str, torch.Tensor], top_k: int,
         flat_e = torch.where(mine, flat_e - e0, 0)
         top_p = sharding.copy_to_model(top_p)
     flat_w = top_p.reshape(g, tg * top_k) * keep
-    safe_pos = torch.where(keep, flat_pos, cap - 1)
 
-    # over a width axis the tokens and their routing are gathered, unless
-    # every width rank holds the same rows
-    gather = width is not None and data is not None
-    if width is not None:
-        width_forms["tokens" if gather else "replicated"] += 1
-    if gather:
+    # over a width axis the tokens and their routing are gathered, or the
+    # experts' slices, unless every width rank holds the same rows
+    if width is None:
+        form = None
+    elif data is None:
+        form = "replicated"
+    elif form is None:
+        train = torch.is_grad_enabled() and w["w1"].requires_grad
+        form = width_form(g * tg, d, w["w1"].shape[2] * width.size,
+                          n_local, top_k, width.size, xg.element_size(),
+                          w["w1"].element_size(), train, remat)
+    if form is not None:
+        width_forms[form] += 1
+    rows = cap
+    if form == "weights":
+        w = dict(w, **{n: sharding.gather_over_width(
+            w[n], 1 if n == "w2" else 2, getattr(w[n], "leaf_name", n))
+            for n in ("w1", "w3", "w2")})
+        if shared:              # the rank's own kept slots, in order
+            flat_pos = own_pos
+            if xg.device.type == "meta":
+                rows = -(-cap // width.size)
+            else:
+                rows = max(1, int(torch.where(keep, own_pos + 1, 0).max()))
+    safe_pos = torch.where(keep, flat_pos, rows - 1)
+
+    if form == "tokens":
         h = sharding.gather_over_width(h)
         flat_w = sharding.gather_over_width(flat_w)
         keep, flat_e, safe_pos = sharding.all_gather(
@@ -228,7 +306,7 @@ def _dispatch(xg: torch.Tensor, w: Mapping[str, torch.Tensor], top_k: int,
         n_buf = max(groups) + 1
         gidx = torch.tensor(groups, device=xg.device)
     else:
-        if width is not None:
+        if form == "replicated":
             h = sharding.copy_to_width(h)
         n_buf = g
         gidx = torch.arange(g, device=xg.device)
@@ -237,27 +315,28 @@ def _dispatch(xg: torch.Tensor, w: Mapping[str, torch.Tensor], top_k: int,
     # dispatch into buffers [G, E, C, d]: dropped slots add zeros
     xk = torch.where(keep[..., None], h.repeat_interleave(top_k, dim=1),
                      0).to(xg.dtype)
-    buf = torch.zeros((n_buf, n_local, cap, d), dtype=xg.dtype,
+    buf = torch.zeros((n_buf, n_local, rows, d), dtype=xg.dtype,
                       device=xg.device)
     buf.index_put_((gidx, flat_e, safe_pos), xk, accumulate=True)
     del xk
 
     # expert compute (batched SwiGLU): expert-major [E, G·C, d], on this
-    # rank's slice of the hidden width under a width axis
+    # rank's slice of the hidden width in the tokens form
     nb = buf.shape[0]
-    be = buf.transpose(0, 1).reshape(n_local, nb * cap, d)
+    be = buf.transpose(0, 1).reshape(n_local, nb * rows, d)
     del buf
     hid = F.silu(torch.bmm(be, w["w1"])) * torch.bmm(be, w["w3"])
     del be
-    out = torch.bmm(hid, w["w2"]).reshape(n_local, nb, cap, d).transpose(0, 1)
+    out = torch.bmm(hid, w["w2"]).reshape(n_local, nb, rows, d)
+    out = out.transpose(0, 1)
     del hid
 
     # combine
     yk = out[gidx, flat_e, safe_pos] * flat_w[..., None].to(xg.dtype)
     y = yk.reshape(-1, tg, top_k, d).sum(dim=2)
-    if gather:
+    if form == "tokens":
         y = sharding.scatter_over_width(y)
-    elif width is not None:
+    elif form == "replicated":
         y = sharding.reduce_from_width(y)
     if expert_parallel:
         y = sharding.reduce_from_model(y)
@@ -270,22 +349,25 @@ def _data_size() -> int:
 
 
 def moe_ffn(x: torch.Tensor, p: Mapping[str, torch.Tensor], top_k: int,
-            capacity_factor: float = 1.25, expert_parallel: bool = False
+            capacity_factor: float = 1.25, expert_parallel: bool = False,
+            remat: bool = False, form: Optional[str] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B,S,d] -> (y [B,S,d], aux_loss scalar); one capacity for all
-    ``B·S`` tokens (of the whole batch, under a "data" axis)."""
+    ``B·S`` tokens (of the whole batch, under a "data" axis).  ``remat``
+    and ``form``: :func:`_dispatch`'s, under a width axis."""
     b, s, d = x.shape
     n = _data_size()
     e = p["wg"].shape[1] * (sharding.model_size() if expert_parallel else 1)
     cap = capacity(b * s * n, top_k, capacity_factor, e)
     y, aux = _dispatch(x.reshape(1, b * s, d), p, top_k, cap, n,
-                       expert_parallel)
+                       expert_parallel, remat, form)
     return y.reshape(b, s, d), aux
 
 
 def moe_ffn_grouped(x: torch.Tensor, p: Mapping[str, torch.Tensor],
                     top_k: int, capacity_factor: float = 1.25,
-                    n_groups: int = 256, expert_parallel: bool = False
+                    n_groups: int = 256, expert_parallel: bool = False,
+                    remat: bool = False, form: Optional[str] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Grouped (GShard-style) dispatch: the ``B·S`` tokens split into
     :func:`n_groups_for` groups, each with its own capacity slice of every
@@ -294,7 +376,8 @@ def moe_ffn_grouped(x: torch.Tensor, p: Mapping[str, torch.Tensor],
     Under a "data" axis the groups are the whole batch's: where they fall
     whole inside each rank's rows the rank runs its own, and where one
     group spans several ranks those ranks share its capacity.  Group and
-    rank counts that nest neither way raise ``ValueError``."""
+    rank counts that nest neither way raise ``ValueError``.  ``remat``
+    and ``form``: :func:`_dispatch`'s, under a width axis."""
     b, s, d = x.shape
     n = _data_size()
     total = b * s * n
@@ -310,5 +393,5 @@ def moe_ffn_grouped(x: torch.Tensor, p: Mapping[str, torch.Tensor],
     e = p["wg"].shape[1] * (sharding.model_size() if expert_parallel else 1)
     cap = capacity(tg, top_k, capacity_factor, e)
     y, aux = _dispatch(x.reshape(local, b * s // local, d), p, top_k, cap,
-                       share, expert_parallel)
+                       share, expert_parallel, remat, form)
     return y.reshape(b, s, d), aux

@@ -56,7 +56,8 @@ rank's slice of it, :func:`build_shards`):
 * :func:`gather_over_width` / :func:`scatter_over_width`: all-gather
   forward and reduce-scatter backward, and the converse (the expert
   inputs every width rank's slice of the experts needs, and those
-  slices' partial outputs summed back to the rank that owns each row);
+  slices' partial outputs summed back to the rank that owns each row;
+  or the slices themselves, gathered whole);
   :func:`copy_to_width` / :func:`reduce_from_width` where every width
   rank holds the same rows;
 * :func:`all_reduce`, :func:`all_gather`, :func:`reduce_scatter`: the
@@ -488,13 +489,13 @@ class _Gather(torch.autograd.Function):
     """All-gather forward, reduce-scatter backward."""
 
     @staticmethod
-    def forward(ctx, x, axis, dim):
+    def forward(ctx, x, axis, dim, leaf):
         ctx.axis, ctx.dim = axis, dim
-        return all_gather(x, axis, dim)
+        return all_gather(x, axis, dim, leaf)
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter(g, ctx.axis, ctx.dim), None, None
+        return reduce_scatter(g, ctx.axis, ctx.dim), None, None, None
 
 
 class _Scatter(torch.autograd.Function):
@@ -562,11 +563,13 @@ def sum_over_data(x: torch.Tensor) -> torch.Tensor:
     return _SumOverData.apply(x) if _live(_DATA) else x
 
 
-def gather_over_width(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+def gather_over_width(x: torch.Tensor, dim: int = 0,
+                      leaf: Optional[str] = None) -> torch.Tensor:
     """Every width rank's ``x`` concatenated along ``dim`` in rank order
     (all-gather forward); backward, this rank's slice of the sum of the
-    ranks' gradients (reduce-scatter)."""
-    return _Gather.apply(x, _WIDTH, dim) if _live(_WIDTH) else x
+    ranks' gradients (reduce-scatter); ``leaf`` names a weight gathered
+    whole."""
+    return _Gather.apply(x, _WIDTH, dim, leaf) if _live(_WIDTH) else x
 
 
 def scatter_over_width(x: torch.Tensor, dim: int = 0) -> torch.Tensor:

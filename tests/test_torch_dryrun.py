@@ -129,3 +129,27 @@ def test_multi_pod_train_cell():
 def test_inapplicable_cell_is_skipped():
     rec = dryrun.run_cell("mistral-nemo-12b", "long_500k", False)
     assert rec["status"] == "skipped" and "long_500k" in rec["reason"]
+
+
+@pytest.mark.parametrize("seq,form", [(256, "tokens"), (512, "weights")])
+def test_dryrun_records_the_moe_width_form_the_rule_takes(seq, form):
+    """arctic-480b prefill cells of batch 16 on 16x16 (one sequence a data
+    rank): at 256 rows a rank the tokens move fewer bytes over the width
+    axis than the rank's 8 experts' slices (105 MB), at 512 more; the
+    record names the form every layer took, and where the weights form
+    sized the flat dispatch's expert rows without counts (``meta``), it
+    says so.  The other counts stay the specs'."""
+    from repro_torch.models import moe
+    cfg = get_config("arctic-480b")
+    rows = seq          # 16 rows of the batch over 16 data ranks
+    assert moe.width_form(rows, cfg.d_model, cfg.moe_d_ff,
+                          cfg.n_experts // 16, cfg.top_k, 16, 2, 2) == form
+    rec = dryrun.run_cell("arctic-480b", ShapeSpec("p", seq, 16, "prefill"),
+                          False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["rows_per_device"] == 1
+    assert rec["moe_width_form"] == form
+    assert rec.get("moe_rows_balanced", False) == (form == "weights")
+    assert rec["param_bytes_per_device"] == rec["param_bytes_by_specs"]
+    assert rec["leaf_gathers"].get("data", 0) == (
+        3 * cfg.n_layers if form == "weights" else 0)

@@ -4,6 +4,11 @@ build_sharded_train_step``), on the CPU: gloo ranks against one rank in
 fp32 at the tolerances of ``tests/test_torch_tp.py``, the build's and
 ``convert``'s slices against the world of one's leaves bit for bit, a
 sharded checkpoint's resume, and the production-mesh dry-run's bytes.
+Each call takes one of two width forms (``moe.width_form``, from its
+shapes): the tokens gathered over "data" (the cases at batch 4 x 32), or
+the experts' slices gathered whole (the cases at ``WEIGHTS_SEQ``): the
+rule against hand arithmetic, both forms against the world of one and
+against each other, the bytes each moves against the rule's count.
 
 The reference shards the experts as ``P(E over "model", None, "data")``
 (``src/repro/models/blocks.py`` ``build_moe``): each rank holds ``[E/m, d,
@@ -26,7 +31,8 @@ from repro_torch.models import moe, sharding
 from repro_torch.models.convert import load_jax_params, named_from_jax
 from repro_torch.models.model import Model
 from test_torch_moe_dp import CAPACITY, DISPATCH
-from test_torch_tp import CPU, F32, RTOL, _assert_parity, _cfg, _spawn
+from test_torch_tp import (CPU, F32, FIRST_STEP_MAX, GRAD_MAX_RTOL, RTOL,
+                           _assert_parity, _cfg, _spawn)
 
 def _expert_shape(cfg, name, m, d):
     e, f = cfg.n_experts // m, cfg.moe_d_ff // d
@@ -212,3 +218,249 @@ def test_width_groups_number_the_gathered_groups():
                            width=width):
         assert moe._width_groups(1, 2, width) == [0, 1, 2, 3]
         assert moe._width_groups(1, 16, width) == [0, 0, 0, 0]
+
+
+# ------------------------------------------- the width form of each call
+
+#: the rows a rank routes at 16x16 in each cell (the global batch over 16
+#: data ranks; a decode step is one token a row)
+CELL_ROWS = {"train_4k": 256 // 16 * 4096, "prefill_32k": 32 // 16 * 32768,
+             "decode_32k": 128 // 16}
+
+
+@pytest.mark.parametrize("cell,want", [("train_4k", "weights"),
+                                       ("prefill_32k", "weights"),
+                                       ("decode_32k", "tokens")])
+@pytest.mark.parametrize("arch", ["arctic-480b", "kimi-k2-1t-a32b"])
+def test_width_form_rule_against_hand_arithmetic(arch, cell, want):
+    """``moe.width_form_bytes`` at 16x16, bf16, written out by hand: the
+    tokens form gathers each row (``d`` bf16, its ``k`` combine weights
+    in fp32 and its experts, positions and keep masks in int64) and
+    sum-scatters the 16 ranks' partial outputs; the weights form gathers
+    the rank's experts' ``w1`` / ``w3`` / ``w2`` slices (``E/16``
+    experts, ``d_ff/16`` wide) and, in training, reduce-scatters their
+    gradients; arctic and kimi train under ``remat="full"``, so the
+    forward's collectives count twice.  The rule takes the weights form
+    for ``train_4k`` and ``prefill_32k`` and the tokens form for
+    ``decode_32k``; at arctic ``train_4k`` that is 47.9 GB against
+    1.88 GB a layer."""
+    cfg = get_config(arch)
+    d, f, k = cfg.d_model, cfg.moe_d_ff, cfg.top_k
+    e = cfg.n_experts // 16
+    t = CELL_ROWS[cell]
+    train = cell == "train_4k"
+    tokens_fwd = t * d * 2 + t * k * 4 + 3 * t * k * 8 + 16 * t * d * 2
+    tokens_bwd = 16 * t * d * 2 + 16 * t * k * 4 + t * d * 2
+    weights_fwd = 3 * e * d * (f // 16) * 2
+    weights_bwd = 3 * e * d * f * 2
+    if train:
+        want_bytes = dict(tokens=2 * tokens_fwd + tokens_bwd,
+                          weights=2 * weights_fwd + weights_bwd)
+    else:
+        want_bytes = dict(tokens=tokens_fwd, weights=weights_fwd)
+    args = (t, d, f, e, k, 16, 2, 2, train, cfg.remat == "full")
+    assert cfg.remat == "full"
+    assert moe.width_form_bytes(*args) == want_bytes
+    assert moe.width_form(*args) == want
+    if arch == "arctic-480b" and train:
+        assert want_bytes["tokens"] == pytest.approx(47.9e9, rel=2e-3)
+        assert want_bytes["weights"] == pytest.approx(1.88e9, rel=3e-3)
+
+
+def test_width_form_ties_go_to_the_tokens():
+    """Equal bytes take the tokens form; one byte fewer the weights."""
+    args = dict(d=1, d_ff=2, n_local=1, top_k=1, width=2, act_bytes=1,
+                w_bytes=1)
+    # tokens: rows·(1 + 4 + 24) + 2·rows = 31·rows; weights: 3
+    assert moe.width_form_bytes(1, **args) == dict(tokens=31, weights=3)
+    tie = dict(args, n_local=31)      # weights 3·31 = 93 = 31·3 rows
+    assert moe.width_form_bytes(3, **tie) == dict(tokens=93, weights=93)
+    assert moe.width_form(3, **tie) == "tokens"
+    assert moe.width_form(3, **dict(tie, n_local=30)) == "weights"
+    with pytest.raises(ValueError, match="unknown width form"):
+        moe.moe_ffn(torch.zeros(1, 2, 4), dict(
+            wg=torch.zeros(4, 2), w1=torch.zeros(2, 4, 4),
+            w3=torch.zeros(2, 4, 4), w2=torch.zeros(2, 4, 4)), 1,
+            form="rows")
+
+
+#: the sequence of batch 4 at which the weights-form cases run: the
+#: smallest power of two at which the smoke config's rule takes the
+#: weights form (512 rows a data rank move 823,296 bytes in the tokens
+#: form against 589,824: the rank's 8 experts' slices gathered and their
+#: gradients reduce-scattered; at the other tests' 32, 102,912)
+WEIGHTS_SEQ = 256
+
+
+def _weights_cfg(mesh, dispatch, capacity):
+    grouped, groups = DISPATCH[dispatch]
+    return _cfg("arctic-480b", n_experts=8 * mesh[1], moe_grouped=grouped,
+                moe_n_groups=groups, capacity_factor=CAPACITY[capacity])
+
+
+def _rule_at(cfg, mesh, seq, batch=4):
+    """The rule's form and bytes for ``cfg``'s smoke MoE on ``mesh``, a
+    training call without remat, at ``batch`` x ``seq``."""
+    args = (batch // mesh[0] * seq, cfg.d_model, cfg.moe_d_ff,
+            cfg.n_experts // mesh[1], cfg.top_k, mesh[0], 4, 4, True)
+    return moe.width_form(*args), moe.width_form_bytes(*args)
+
+
+@pytest.mark.parametrize("mesh", [(2, 1), (2, 2)])
+def test_the_rule_keeps_the_tokens_form_where_the_tests_took_it(mesh):
+    """At the other tests' batch 4 x 32 the rule still takes the tokens
+    form (their cases assert it); at ``WEIGHTS_SEQ`` the weights form."""
+    cfg = _weights_cfg(mesh, "flat", "drops")
+    assert _rule_at(cfg, mesh, 32)[0] == "tokens"
+    assert _rule_at(cfg, mesh, 32)[1] == dict(tokens=102_912,
+                                              weights=589_824)
+    assert _rule_at(cfg, mesh, WEIGHTS_SEQ) == (
+        "weights", dict(tokens=823_296, weights=589_824))
+    assert _rule_at(cfg, mesh, WEIGHTS_SEQ // 2)[0] == "tokens"
+
+
+@pytest.mark.parametrize("capacity", sorted(CAPACITY))
+@pytest.mark.parametrize("dispatch", sorted(DISPATCH))
+@pytest.mark.parametrize("mesh", [(2, 1), (2, 2)])
+def test_weights_form_step_equals_world_one(tmp_path, mesh, dispatch,
+                                            capacity):
+    """arctic smoke (16 experts over "model" on (2, 2)) at batch 4 x
+    ``WEIGHTS_SEQ``, where the rule gathers the experts' slices: one
+    sharded step against the world of one, held at the file's bounds in
+    what fp32 rounding reaches unamplified: the loss, the gradients (in
+    norm and by element) and the first update, explained element by
+    element (``first_step_unexplained_over_max``).  The leaves' own
+    figures after the update are not held to ``RTOL``: AdamW's first
+    update turns a last-bit difference of a near-zero gradient into a
+    step of up to 2·lr, which the first-update check predicts element by
+    element, and a further step compounds it in either width form alike.
+    (The optimizer sees the same slices' gradients in either form: its
+    later steps on them are the tokens form's cases'.)  Every dispatch took the weights form; each expert leaf was gathered whole
+    over "data" once (the smoke config does not remat; the other leaves'
+    gathers over "data" are ZeRO-1's); every rank holds the specs'
+    share, its slices ``[E/m, d, d_ff/2]``."""
+    cfg = _weights_cfg(mesh, dispatch, capacity)
+    assert _rule_at(cfg, mesh, WEIGHTS_SEQ)[0] == "weights"
+    outs = _spawn(tmp_path, selftest.sharded_step_parity, mesh[0] * mesh[1],
+                  (cfg, mesh, 4, WEIGHTS_SEQ, 1))
+    experts = [f"blocks.{i}.moe.{n}" for i in range(cfg.n_layers)
+               for n in ("w1", "w3", "w2")]
+    for o in outs:
+        assert o["loss_rel_err"] <= RTOL, o
+        assert o["worst_grad_rel_norm"] <= RTOL, o
+        assert o["worst_grad_err_over_max"] <= GRAD_MAX_RTOL, o
+        assert o["first_step_unexplained_over_max"] <= FIRST_STEP_MAX, o
+        assert o["param_bytes"] == o["spec_param_bytes"], o
+        assert o["moe_width_forms"] == {"weights": cfg.n_layers}
+        gathered = o["leaf_gathers"]["data"]      # with ZeRO-1's gathers
+        assert {n: gathered.get(n) for n in experts} == \
+            {n: 1 for n in experts}
+        for n, shape in o["expert_shapes"].items():
+            assert shape == _expert_shape(cfg, n[-2:], mesh[1], mesh[0])
+
+
+def _router_bytes(cfg, shared):
+    """The width-independent "data" bytes of one MoE call: the expert
+    counts' and the router probabilities' sums all-reduced (fp32 [E];
+    the second again backward), and where ranks share a group their
+    per-expert counts gathered (int64 [1, G, E], G = 1 here)."""
+    return 12 * cfg.n_experts + (8 * cfg.n_experts if shared else 0)
+
+
+@pytest.mark.parametrize("dispatch", sorted(DISPATCH))
+@pytest.mark.parametrize("mesh", [(2, 1), (2, 2)])
+def test_both_width_forms_agree_and_move_what_the_rule_counts(
+        tmp_path, mesh, dispatch):
+    """The first block's routed FFN forced into each form on the same
+    rows (``selftest.moe_width_forms``), forward and backward: the loss
+    and the gradients of the input and of every leaf the rank holds
+    agree within the file's bounds.  The bytes each moved over "data"
+    are the rule's count plus the router's statistics, exactly; the
+    weights form gathered each expert leaf whole once and no token,
+    the tokens form no leaf."""
+    cfg = _weights_cfg(mesh, dispatch, "drops")
+    outs = _spawn(tmp_path, selftest.moe_width_forms, mesh[0] * mesh[1],
+                  (cfg, mesh, 4, WEIGHTS_SEQ))
+    _, rule = _rule_at(cfg, mesh, WEIGHTS_SEQ)
+    grouped, groups = DISPATCH[dispatch]
+    shared = not grouped or groups == 1
+    for o in outs:
+        f = o["figures"]
+        assert f["loss_rel_err"]["loss"] <= RTOL, f
+        assert max(f["grad_rel_norm"].values()) <= RTOL, f
+        assert max(f["grad_err_over_max"].values()) <= GRAD_MAX_RTOL, f
+        assert set(f["grad_rel_norm"]) == {"x", "wg", "w1", "w3", "w2"}
+        for form in moe.FORMS:
+            assert o[form]["forms"] == {form: 1}
+            assert o[form]["by_axis"]["data"] == \
+                rule[form] + _router_bytes(cfg, shared), (form, o[form])
+        assert o["weights"]["leaf_gathers"] == {"data": {
+            f"blocks.0.moe.{n}": 1 for n in ("w1", "w3", "w2")}}
+        assert o["tokens"]["leaf_gathers"] == {}
+
+
+@pytest.mark.parametrize("capacity", sorted(CAPACITY))
+def test_weights_form_runs_a_ranks_own_kept_slots(tmp_path, capacity):
+    """The flat dispatch on (2, 1): the tokens form runs each expert on
+    the whole batch's capacity of rows; the weights form on as many rows
+    as the rank keeps for its busiest expert, counted here from the
+    world of one's routing of the whole batch (the (token, slot) pairs it
+    keeps among the rank's tokens; the two ranks' together are the world
+    of one's), fewer than the capacity where nothing is dropped (with
+    drops the first rank may fill an expert's capacity alone)."""
+    cfg = _weights_cfg((2, 1), "flat", capacity)
+    outs = _spawn(tmp_path, selftest.moe_width_forms, 2,
+                  (cfg, (2, 1), 4, WEIGHTS_SEQ))
+    model = Model(cfg, device=CPU,
+                  generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (4, WEIGHTS_SEQ, cfg.d_model)).astype(np.float32))
+    _, _, top_i = moe.route(x.reshape(1, -1, cfg.d_model),
+                            model.blocks[0].moe.wg, cfg.top_k)
+    cap = moe.capacity(x.shape[0] * x.shape[1], cfg.top_k,
+                       cfg.capacity_factor, cfg.n_experts)
+    _, keep = moe.slot_positions(top_i, cfg.n_experts, cap)
+    flat_e, per_rank = top_i.reshape(-1), keep.shape[1] // 2
+
+    def kept(pairs):
+        return torch.bincount(flat_e[pairs][keep[0, pairs]],
+                              minlength=cfg.n_experts)
+    mine = [kept(slice(q * per_rank, (q + 1) * per_rank)) for q in (0, 1)]
+    assert torch.equal(mine[0] + mine[1], kept(slice(None)))
+    for q, o in enumerate(outs):
+        assert o["tokens"]["expert_rows"] == cap
+        assert o["weights"]["expert_rows"] == max(1, int(mine[q].max()))
+        assert o["weights"]["expert_rows"] <= cap
+        if capacity == "no_drops":
+            assert o["weights"]["expert_rows"] < cap // 4
+
+
+def test_weights_form_over_pods_equals_world_one(tmp_path):
+    """arctic smoke on a (pod, data, model) mesh of (2, 2, 1), batch 4 x
+    ``2 · WEIGHTS_SEQ`` (one row a rank, as many rows as the (2, 1)
+    cases': the rule gathers the slices over "data"), three sharded steps (``selftest.sharded_losses``): the
+    train step sums the slices' gradients over "pod" only (each has seen
+    its pod's every data rank through the width gather's
+    reduce-scatter), so the losses are the world of one's within 1e-5
+    relative; every rank holds the specs' share."""
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import optimizer as opt
+    cfg = _weights_cfg((2, 1), "flat", "no_drops")
+    seq, steps = 2 * WEIGHTS_SEQ, 3
+    assert moe.width_form(seq, cfg.d_model, cfg.moe_d_ff, cfg.n_experts,
+                          cfg.top_k, 2, 4, 4, True) == "weights"
+    outs = _spawn(tmp_path, selftest.sharded_losses, 4,
+                  (cfg, (2, 2, 1), 4, seq, steps))
+    model = Model(cfg, device=CPU,
+                  generator=torch.Generator().manual_seed(0))
+    model.requires_grad_(True)
+    ocfg = opt.OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = build_train_step(model, ocfg, opt.init(
+        dict(model.named_parameters()), ocfg))
+    data = selftest._batch(cfg, 4, seq, torch.device(CPU))
+    single = [float(step(data)["loss"]) for _ in range(steps)]
+    for o in outs:
+        assert o["moe_width_forms"] == {"weights": steps * cfg.n_layers}
+        assert o["param_bytes"] == o["spec_param_bytes"], o
+        rel = np.abs(np.array(o["losses"]) - single) / np.abs(single)
+        assert rel.max() <= RTOL, (o["losses"], single)

@@ -78,6 +78,51 @@ def test_sweep_records_have_roofline_terms():
                 r["state_bytes_by_specs"], key
 
 
+#: the "data" bytes of arctic's and kimi's 16x16 cells when every MoE
+#: call took the tokens form, before the rule could take the weights form
+TOKENS_FORM_DATA = {("arctic-480b", "train_4k"): 1679733353096,
+                    ("arctic-480b", "prefill_32k"): 559145359360,
+                    ("kimi-k2-1t-a32b", "train_4k"): 2012193130632,
+                    ("kimi-k2-1t-a32b", "prefill_32k"): 975182346240}
+
+
+def test_moe_records_carry_their_width_form():
+    """Every arctic and kimi record names the width form its MoE layers
+    took: the expert slices in the train and prefill cells, the tokens in
+    the decode cells (a few rows a rank); its parameters and state are
+    the specs'; the weights form's train and prefill cells move at most a
+    tenth (kimi's train: a fifth) of the tokens form's "data" bytes."""
+    for (arch, shape, mesh), r in _records().items():
+        if arch not in ("arctic-480b", "kimi-k2-1t-a32b") or \
+                r.get("status") != "ok":
+            continue
+        want = "tokens" if shape == "decode_32k" else "weights"
+        assert r["moe_width_form"] == want, (arch, shape, mesh)
+        assert r.get("moe_rows_balanced", False) == (want == "weights"), \
+            (arch, shape)
+        assert r["param_bytes_per_device"] == r["param_bytes_by_specs"]
+        assert r["state_bytes_per_device"] == r["state_bytes_by_specs"]
+        was = TOKENS_FORM_DATA.get((arch, shape))
+        if was is not None and mesh == "16x16":
+            share = 5 if arch.startswith("kimi") else 10
+            assert r["coll_by_axis"]["data"] <= was / share, (arch, shape)
+
+
+def test_arctic_cells_are_no_longer_bound_by_the_data_exchange():
+    """arctic at 16x16: ``prefill_32k`` is memory-bound; ``train_4k``'s
+    collective term is led by the "model" axis (the tensor-parallel
+    all-reduces), its "data" bytes a fifth of them or less, and the
+    "data" exchange alone would take less time than the memory term."""
+    recs = _records()
+    assert recs["arctic-480b", "prefill_32k", "16x16"]["bottleneck"] == \
+        "memory"
+    r = recs["arctic-480b", "train_4k", "16x16"]
+    by_axis = r["coll_by_axis"]
+    assert by_axis["data"] * 4 <= by_axis["model"]
+    t_data = r["t_collective_s"] * by_axis["data"] / sum(by_axis.values())
+    assert t_data < r["t_memory_s"]
+
+
 def _spy_subprocess(monkeypatch):
     calls = []
     real = subprocess.run
