@@ -3297,7 +3297,8 @@ DIST_BIG = dict(mesh=(1, 4), seq=4096, batch=1, steps=4, warmup=1)
 # the shared attention); xlstm at full width (4 heads, 2 a rank) cut to
 # DIST_XLSTM's depth and sequence; and qwen2-vl's 28 query heads over 4
 # K/V heads on (1, 8), eight gloo ranks (3 or 4 query heads a rank and
-# the K/V head they read; all four attention leaves gathered at use),
+# the K/V head they read; all four attention leaves' slices are not
+# the ranks' parts, so each use gathers the leaf or its product),
 # cut to 1 layer and a vocabulary of 8,192 so that the world of one fits
 # the card beside the ranks, and 1 step (the first update is predicted
 # element by element, and the leaves after it held).  ``floor_k``: the
@@ -3351,10 +3352,26 @@ DIST_SHARED_STEP = dict(batch=2, seq=512, steps=2)
 # routed FFN forward and backward (``selftest.moe_width_forms``) on 2 x
 # 4,096 tokens (one sequence a data rank; the rule would take the
 # weights form from ~26,000 rows a rank), the weights form held against
-# the tokens form at DIST_LOSS_RTOL / DIST_GRAD_RTOL / DIST_GRAD_MAX
+# the tokens form at DIST_LOSS_RTOL / DIST_GRAD_RTOL / DIST_GRAD_MAX; one
+# pass a form, so each form's seconds carry its set-up
 DIST_MOE_FORMS = dict(arch="arctic-480b", mesh=(2, 1), layers=1, experts=8,
                       batch=2, seq=4096)
 DIST_XLSTM_DEEP = dict(arch="xlstm-350m", mesh=(1, 2), seq=256, steps=1)
+# the two forms of a leaf whose stored "model" slice is not its rank's
+# part (``blocks.heads_form``: the leaf gathered whole, or the product of
+# the stored slice exchanged) at decode, on (1, 2): one Mamba-2 block of
+# zamba2 (its packed ``in_proj``), one mLSTM (``up``) and one sLSTM
+# (``wx``, ``out``; ``r`` keeps the weights form) block of xlstm, at
+# full width, fp32, the SSM's chunk cut to the 64 positions of the
+# forward, LM_DECODE's batch of 4: the forward, then 8 decode steps, in
+# each form forced and under the rule (``selftest.heads_decode_forms``),
+# each within DIST_DECODE_REL_RMS of the world of one (the fp32 decode
+# bound, PERF.md §2)
+DIST_HEADS_DECODE = dict(cases=(("mamba2", "zamba2-2.7b"),
+                                ("mlstm", "xlstm-350m"),
+                                ("slstm", "xlstm-350m")),
+                         mesh=(1, 2), seq=64, steps=8)
+DIST_DECODE_REL_RMS = 1e-3
 # zamba2's fp32 floor lies above those bounds: its Mamba-2 per-head fp32
 # scalars (``a_log``, ``d_skip``, ``dt_bias``) take gradients summed over
 # every token with heavy cancellation, so any other fp32 order of the same
@@ -3477,8 +3494,10 @@ def dist_shared_card(device_type="cuda"):
     data-parallel MoE mesh in each width form, the recurrent blocks and
     an uneven head split over "model") against the world of one, in
     fp32; arctic's routed FFN at full width in both width forms
-    (:func:`_moe_forms`); then ``DIST_XLSTM_DEEP``'s sharded steps alone (``selftest.sharded_losses``):
-    finite losses, every rank's alike."""
+    (:func:`_moe_forms`); the recurrent blocks decoding in each heads
+    form (:func:`_heads_decode`); then ``DIST_XLSTM_DEEP``'s sharded
+    steps alone (``selftest.sharded_losses``): finite losses, every
+    rank's alike."""
     from repro_torch.configs import get_config
     from repro_torch.distributed import selftest
     from repro_torch.distributed.launch import spawn
@@ -3504,6 +3523,7 @@ def dist_shared_card(device_type="cuda"):
                 outs, cfg, run["mesh"], f"{name} {run['mesh']}")
         _forms_checked(outs, run, f"{name} {run['mesh']}")
     out["moe_forms"] = _moe_forms(device_type)
+    out["heads_decode"] = _heads_decode(device_type)
     run = DIST_XLSTM_DEEP
     cfg = _fp32(get_config(run["arch"]))
     t0 = time.perf_counter()
@@ -3581,6 +3601,56 @@ def _moe_forms(device_type):
         rule_form=moe.width_form(*args), cap=cap, even_rows=even, weights_rows_by_rank=rows,
         busiest_over_even=max(rows) / even,
         seconds=time.perf_counter() - t0)
+
+
+def _heads_decode(device_type):
+    """``DIST_HEADS_DECODE`` on gloo ranks sharing the card: each block in
+    each heads form forced and under the rule, against the world of one
+    within DIST_DECODE_REL_RMS; in the decode steps, the rule takes the
+    activations form wherever a leaf has it (the calls by form equal the
+    forced activations form's), and each form's "model" all-gathers move
+    the bytes the rule counts; the milliseconds a decode step of each
+    form, recorded beside the card (not gated)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import selftest
+    from repro_torch.distributed.launch import spawn
+    run = DIST_HEADS_DECODE
+    cases = [(_fp32(get_config(arch), ssm_chunk=run["seq"]), kind)
+             for kind, arch in run["cases"]]
+    t0 = time.perf_counter()
+    outs = spawn(selftest.heads_decode_forms, run["mesh"][1],
+                 (cases, LM_DECODE[0], run["seq"], run["steps"]),
+                 device_type=device_type, backend="gloo", timeout=900.0)
+    for q, o in enumerate(outs):
+        for kind, by_form in o.items():
+            what = f"heads decode {kind} {run['mesh']}: rank {q}"
+            for form, r in by_form.items():
+                check(r["rel_rms"] <= DIST_DECODE_REL_RMS,
+                      f"dist: {what}: {form}: {r['rel_rms']} of the world "
+                      f"of one's rms (limit {DIST_DECODE_REL_RMS})")
+                check(r["model_bytes"].get("all-gather", 0) ==
+                      sum(r["heads_moved"].values()),
+                      f"dist: {what}: {form}: all-gathers "
+                      f"{r['model_bytes']}, the rule's count "
+                      f"{r['heads_moved']}")
+            acts = by_form["activations"]["heads_forms"]
+            check(acts.get("activations", 0) > 0 and
+                  by_form["rule"]["heads_forms"] == acts and
+                  set(by_form["weights"]["heads_forms"]) == {"weights"},
+                  f"dist: {what}: calls by form "
+                  f"{ {f: r['heads_forms'] for f, r in by_form.items()} }")
+    return dict(
+        cases=[list(c) for c in run["cases"]], mesh=list(run["mesh"]),
+        batch=LM_DECODE[0], seq=run["seq"], steps=run["steps"],
+        dtype="float32", rel_rms_limit=DIST_DECODE_REL_RMS,
+        by_case={kind: {form: dict(
+            rel_rms=[o[kind][form]["rel_rms"] for o in outs],
+            decode_ms=[o[kind][form]["decode_ms"] for o in outs],
+            heads_forms=outs[0][kind][form]["heads_forms"],
+            model_bytes=outs[0][kind][form]["model_bytes"],
+            rule_bytes=outs[0][kind][form]["heads_moved"])
+            for form in outs[0][kind]} for kind in outs[0]},
+        card=card_line(), seconds=time.perf_counter() - t0)
 
 
 def _case_cuts(run):

@@ -119,7 +119,8 @@ def _smoke_fp32(arch: str):
 
 def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
                         seq: int = 32, steps: int = 1,
-                        lr: float = 1e-3, floor: bool = False) -> Dict:
+                        lr: float = 1e-3, floor: bool = False,
+                        form: Optional[str] = None) -> Dict:
     """``steps`` train steps of ``cfg`` (weights from seed 0) on one batch
     drawn with numpy (with a vision model's ``frontend`` and an
     encoder-decoder's ``enc_embeds``), by ``build_train_step`` on this
@@ -155,13 +156,17 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
     (every activation then rounds otherwise, as the sharded run's
     reordered sums make it do), the larger of the two runs' differences
     from the first, in each figure, under ``floors`` (:func:`beyond_floor`
-    reads both)."""
+    reads both).
+
+    ``form``: the sharded model's heads exchange forced into that form
+    (``blocks.force_heads_form``); ``heads_forms``: the sharded steps'
+    calls by form."""
     import torch.distributed as dist
 
     from ..launch.mesh import make_test_mesh
     from ..launch.steps import (build_sharded_train_step, build_train_step,
                                 loss_and_grads, mesh_places)
-    from ..models import moe, sharding
+    from ..models import blocks, moe, sharding
     from ..models.model import Model
     from ..optim import optimizer as opt
     dev = _device()
@@ -186,6 +191,8 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
                 model.embed.copy_(torch.nextafter(
                     model.embed, torch.tensor(kind, device=dev)))
         model.requires_grad_(True)
+        if sharded:
+            blocks.force_heads_form(model, form)
         params = dict(model.named_parameters())
         layout = model.layout()
         if sharded:
@@ -206,6 +213,7 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
             if sharded else build_train_step(model, ocfg, state)
         sharding.stats.reset()
         moe.width_forms.clear()
+        blocks.heads_forms.clear()
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         out = step(data)
@@ -241,6 +249,7 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
                                          and not n.endswith("wg")},
                           coll_bytes=coll["bytes"],
                           moe_width_forms=dict(moe.width_forms),
+                          heads_forms=dict(blocks.heads_forms),
                           coll_bytes_by_axis=coll["by_axis"],
                           step_peak_bytes=(
                               torch.cuda.max_memory_allocated(dev)
@@ -302,11 +311,10 @@ def moe_width_forms(cfg, shape: Tuple[int, int], batch: int = 4,
     kind and axis, the leaves gathered whole by axis and name, the
     dispatches by form, the rows each expert's products ran on
     (``expert_rows``: the first ``bmm``'s middle dimension), the seconds
-    of each of two passes (the forms take turns, the first pass carrying
-    the set-up; the figures are the second's) and, on CUDA, the rank's
-    peak memory over the second (``step_peak_bytes``) beside what it held
-    as that pass began (``held_bytes``: the model, the input, the other
-    form's gradients)."""
+    of its one pass (the tokens form's first, carrying the set-up) and,
+    on CUDA, the rank's peak memory over it (``step_peak_bytes``) beside
+    what it held as it began (``held_bytes``: the model, the input, the
+    other form's gradients)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from ..launch.mesh import make_test_mesh
@@ -338,7 +346,7 @@ def moe_width_forms(cfg, shape: Tuple[int, int], batch: int = 4,
             return func(*args, **(kwargs or {}))
 
     out, runs = {}, {}
-    for form in moe.FORMS * 2:
+    for form in moe.FORMS:
         leaves = {}
         for n, p in ffn.named_parameters():
             leaves[n] = p.detach().clone().requires_grad_(True)
@@ -365,8 +373,7 @@ def moe_width_forms(cfg, shape: Tuple[int, int], batch: int = 4,
         grads = {"x": xi.grad, **{n: t.grad for n, t in leaves.items()}}
         runs[form] = ([float(loss.detach())], grads, {})
         out[form] = dict(expert_rows=rows[0], forms=dict(moe.width_forms),
-                         seconds=out.get(form, {}).get("seconds", []) +
-                         [seconds],
+                         seconds=seconds,
                          step_peak_bytes=(torch.cuda.max_memory_allocated(
                              dev) if cuda else None),
                          held_bytes=held,
@@ -480,44 +487,110 @@ def _compared(runs, nudged, first) -> Dict:
     return out
 
 
-def block_heads(cfg, kind: str, leaves: Dict[str, np.ndarray],
-                x: np.ndarray, decode_steps: int = 0) -> Dict:
+def block_heads(cfg, kind: str, leaves: Optional[Dict[str, np.ndarray]],
+                x: np.ndarray, decode_steps: int = 0,
+                form: Optional[str] = None, alone: bool = False) -> Dict:
     """One block of ``kind`` (``models.model.BLOCKS``) on this rank's
     shards of a "model" group of every rank (each rank calls it), its
     leaves the whole numpy ``leaves`` (by parameter name) sliced as the
-    build slices them: the heads it computes, their outputs on ``x``
-    [B,S,d] before the row-parallel product (``head_outputs``), the
-    block's output (summed over "model"), and its ``decode`` outputs on
-    the first ``decode_steps`` positions of ``x``, all as numpy."""
+    build slices them (``None``: the block's own draws from seed 0, the
+    world of one's, sliced): the heads it computes, their outputs on
+    ``x`` [B,S,d] before the row-parallel product (``head_outputs``),
+    the block's output (summed over "model"), and its ``decode`` outputs
+    on the first ``decode_steps`` positions of ``x``, all as numpy;
+    ``form``: every leaf's exchange forced into that form
+    (``blocks.force_heads_form``; ``None``: ``blocks.heads_form``'s
+    rule).  Of the decode steps alone: the calls by form
+    (``heads_forms``), the bytes the rule counts for them
+    (``heads_moved``), the collectives' "model" bytes by kind
+    (``model_bytes``) and the milliseconds a step (``decode_ms``, the
+    device synchronised).  ``alone``: the world of one, on this rank by
+    itself (no collective)."""
     import torch.distributed as dist
 
     from ..launch.mesh import make_test_mesh
-    from ..models import sharding
+    from ..models import blocks, sharding
     from ..models.layers import dtype_of
     from ..models.model import BLOCKS
-    world, rank = dist.get_world_size(), dist.get_rank()
+    world, rank = (1, 0) if alone else (dist.get_world_size(),
+                                        dist.get_rank())
     dev = _device()
     with sharding.build_shards(rank, world), torch.no_grad():
         blk = BLOCKS[kind](cfg, generator=torch.Generator(
             device=dev).manual_seed(0))
         specs = blk.param_specs()
         for n, p in blk.named_parameters():
-            p.copy_(sharding.keep_shard(torch.from_numpy(
-                np.asarray(leaves[n])).to(dev, p.dtype), specs[n]))
-    ax = sharding.mesh_axis(make_test_mesh((world,), ("model",)), "model")
+            if leaves is not None:
+                p.copy_(sharding.keep_shard(torch.from_numpy(
+                    np.asarray(leaves[n])).to(dev, p.dtype), specs[n]))
+    blocks.force_heads_form(blk, form)
+    ax = None if alone else sharding.mesh_axis(
+        make_test_mesh((world,), ("model",)), "model")
     tx = torch.from_numpy(x).to(dev, dtype_of(cfg.compute_dtype))
     with torch.inference_mode(), sharding.parallel(model=ax):
         heads = blk.head_outputs(tx)
         y = blk(tx)[0]
         cache = blk.init_cache(x.shape[0], max(decode_steps, 1))
+        sharding.stats.reset()
+        blocks.heads_forms.clear()
+        blocks.heads_moved.clear()
+        _sync(dev)
+        t0 = time.perf_counter()
         steps = [blk.decode(cache, tx[:, t:t + 1], t)
                  for t in range(decode_steps)]
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3 / max(decode_steps, 1)
+    coll = sharding.stats.as_dict()
     got = {n: mod.heads for n, mod in blk.named_modules()
            if isinstance(getattr(mod, "heads", None), tuple)}
     return dict(heads={n or kind: list(h) for n, h in got.items()},
                 head_outputs=heads.float().cpu().numpy(),
                 out=y.float().cpu().numpy(),
-                decode=[t.float().cpu().numpy() for t in steps])
+                decode=[t.float().cpu().numpy() for t in steps],
+                heads_forms=dict(blocks.heads_forms),
+                heads_moved=dict(blocks.heads_moved),
+                model_bytes=dict(coll["bytes"]),
+                decode_ms=ms)
+
+
+def heads_decode_forms(cases, batch: int, seq: int, steps: int) -> Dict:
+    """Each ``(cfg, kind)`` of ``cases`` as one block on this rank's
+    shards of a "model" group of every rank, its leaves its own draws
+    from seed 0, on one numpy input ``[batch, seq, d]`` (seed 0):
+    :func:`block_heads` (the forward over ``seq`` positions, then
+    ``steps`` decode steps) in each form of ``blocks.FORMS`` forced and
+    under the rule (``"rule"``), against the world of one, which each
+    rank computes alone: the worst relative rms, over the forward and
+    each decode step, of the block's own output (its output less its
+    input) against the world of one's; the decode steps' calls by form,
+    the rule's bytes for them, their "model" collectives' bytes and
+    their milliseconds a step, by kind and form."""
+    from ..models import blocks
+    out = {}
+    for cfg, kind in cases:
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((batch, seq, cfg.d_model)).astype(np.float32)
+        one = block_heads(cfg, kind, None, x, steps, alone=True)
+        want = [one["out"] - x] + [d - x[:, t:t + 1]
+                                   for t, d in enumerate(one["decode"])]
+        out[kind] = {}
+        for form in blocks.FORMS + ("rule",):
+            got = block_heads(cfg, kind, None, x, steps,
+                              None if form == "rule" else form)
+            have = [got["out"] - x] + [d - x[:, t:t + 1]
+                                       for t, d in enumerate(got["decode"])]
+            out[kind][form] = dict(
+                rel_rms=max(float(np.sqrt(np.mean((h - w) ** 2)) /
+                                  np.sqrt(np.mean(w ** 2)))
+                            for h, w in zip(have, want)),
+                **{k: got[k] for k in ("heads_forms", "heads_moved",
+                                       "model_bytes", "decode_ms")})
+    return out
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def _heads_report(model, params) -> Dict:

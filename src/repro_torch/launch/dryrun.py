@@ -50,8 +50,10 @@ The record keeps the reference's JSONL keys (``flops_per_device``,
 ``state_bytes_per_device``, ``t_compute_s``, ``t_memory_s``,
 ``t_collective_s``, ``bottleneck``, ``model_flops_total``,
 ``useful_flops_ratio``), with ``moe_width_form`` (what the MoE layers
-sent over the experts' width axis, ``moe.width_form``'s choice), and the
-roofline terms against
+sent over the experts' width axis, ``moe.width_form``'s choice),
+``heads_forms`` (the uses of a leaf whose stored "model" slice is not
+its part, by what each sent over "model": ``blocks.heads_form``'s
+choice), and the roofline terms against
 ``core.accel.H100_SXM``: a collective over a mesh axis whose ranks share
 one 8-GPU node moves at NVLink's rate, one that spans nodes (both axes of
 the production meshes) at the per-GPU inter-node rate.  In the weights
@@ -175,7 +177,7 @@ def run_cell(arch: str, shape: Union[str, Any], multi_pod: bool,
     from ..launch import specs as specs_lib
     from ..launch.mesh import make_production_mesh
     from ..launch.steps import build_sharded_train_step, mesh_places
-    from ..models import moe, sharding
+    from ..models import blocks, moe, sharding
     from ..models.model import Model
     from ..optim import optimizer as opt_lib
     from torch.utils.flop_counter import FlopCounterMode
@@ -248,6 +250,7 @@ def run_cell(arch: str, shape: Union[str, Any], multi_pod: bool,
             t1 = time.time()
             sharding.stats.reset()
             moe.width_forms.clear()
+            blocks.heads_forms.clear()
             counter = ByteCounter()
             with FlopCounterMode(display=False) as flops, counter.mode:
                 run()
@@ -270,6 +273,9 @@ def run_cell(arch: str, shape: Union[str, Any], multi_pod: bool,
             rec["coll_by_axis"] = coll["by_axis"]
             rec["leaf_gathers"] = {a: len(c) for a, c in
                                    coll["leaf_gathers"].items()}
+            # what each use of a leaf whose slice is not its part sent
+            # over "model": the leaf whole, or the product
+            rec["heads_forms"] = dict(sorted(blocks.heads_forms.items()))
             if moe.width_forms:         # what went over the width axis
                 rec["moe_width_form"] = "+".join(sorted(moe.width_forms))
                 if "weights" in moe.width_forms:

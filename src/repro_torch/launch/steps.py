@@ -137,8 +137,10 @@ def build_sharded_train_step(model: Model, ocfg: opt_lib.OptConfig,
       parallelism over "model" (:mod:`~repro_torch.models.blocks`), with
       the collectives of :mod:`~repro_torch.models.sharding` declared for
       the step; each rank computes its share of every block's heads, and
-      the leaves ``model.layout()`` marks ``gather="use"`` are gathered
-      at use and cut to the part those heads read.
+      at each use of a leaf ``model.layout()`` marks ``gather="use"``
+      the leaf is gathered and cut to the part those heads read, or its
+      product exchanged, whichever moves fewer bytes
+      (``blocks.heads_form``).
     * The batch's rows go over "data" (and "pod" where the mesh has it,
       pod-major; over every dimension under
       ``sharding.pure_data_parallel``, and then nothing is

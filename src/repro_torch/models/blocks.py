@@ -36,12 +36,15 @@ rank's slice of its hidden width over "data" where the model is built
 with ``dp=(rank, D)``.  Storage stays the specs' share; a leaf whose
 stored slice is not the part its heads read (an uneven split, K/V heads
 that do not split, a packed projection such as ``in_proj``'s
-``[z | x | B C | dt]`` or ``wx``'s four gates) is gathered whole over
-"model" at use and cut to that part, its gradient reduce-scattered back
-(:class:`_Heads`).
+``[z | x | B C | dt]`` or ``wx``'s four gates) exchanges over "model",
+at each use, whichever of two things moves fewer bytes
+(:func:`heads_form`, from the shapes alone): the leaf, gathered whole and
+cut to that part (its gradient reduce-scattered back), or the product,
+computed on the stored slice and gathered (:meth:`_Heads.product`).
 """
 from __future__ import annotations
 
+import collections
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -102,33 +105,92 @@ def _stored_as_used(shape, spec: Optional[P], dim: int,
     return sd == dim and pieces == [(rank * shape[sd] // m, shape[sd] // m)]
 
 
+#: the two things a gathered leaf's use can exchange over "model"
+FORMS = ("weights", "activations")
+#: the uses of a leaf whose stored slice is not its part, by the form
+#: each took (a leaf gathered whole: ``"weights"``), and the bytes each
+#: form's uses gathered forward (:func:`heads_form_bytes`' forward count)
+heads_forms: collections.Counter = collections.Counter()
+heads_moved: collections.Counter = collections.Counter()
+
+
+def heads_form_bytes(rows: int, d_in: int, width: int, m: int,
+                     act_bytes: int, w_bytes: int,
+                     share: Optional[int] = None) -> Dict[str, int]:
+    """The bytes one forward product of a leaf ``[d_in, width]`` stored in
+    ``m`` slices over "model" gathers in each form, counted as
+    :data:`sharding.stats` counts them (each collective's operand), for a
+    rank of ``rows`` rows (``act_bytes`` / ``w_bytes``: an activation's
+    and a weight's element size):
+
+    * ``"weights"``: the rank's slice gathered (``d_in·width/m``);
+    * ``"activations"``: the rank's ``share`` of each row gathered
+      (``rows·share``; a column leaf's product columns, ``width/m`` by
+      default; a row leaf's head outputs, padded to ``⌈h/m⌉`` heads).
+
+    The forward alone decides: under autograd each form's backward
+    reduce-scatters ``m`` times its forward's operand (the leaf's
+    gradient, or the whole product's), and a remat's recompute runs the
+    forward's gather again, so both multiply the two forms' bytes alike."""
+    share = width // m if share is None else share
+    return dict(weights=d_in * width // m * w_bytes,
+                activations=rows * share * act_bytes)
+
+
+def heads_form(*args) -> str:
+    """The form of :func:`heads_form_bytes` (same arguments) that moves
+    fewer bytes, ``"weights"`` on a tie.  It reads shapes only, so every
+    rank of the "model" group takes the same form with no collective.
+
+    A column leaf (gathered and cut along its last dimension: ``wq`` /
+    ``wk`` / ``wv``, ``in_proj``, ``up``, ``wx``) and a row leaf (cut
+    along its first, the rows its heads' outputs multiply: ``wo``,
+    ``down``, ``out_proj``, and the sLSTM's ``out``, which is stored on
+    its output columns) have the activations form.  The sLSTM's ``r``
+    keeps the weights form: stored on ``hd`` and cut on heads, its
+    product sits inside the token loop, where an exchange would put a
+    collective in every step.  A leaf stored whole (``conv_w``, ``wif``,
+    the norms) is not gathered at all: it is cut as it is."""
+    b = heads_form_bytes(*args)
+    return "activations" if b["activations"] < b["weights"] else "weights"
+
+
 class _Heads(nn.Module):
     """A module whose leaves each rank of the "model" group cuts, at use,
-    to the parts that the heads it computes read (:meth:`part`).  Storage
-    is the specs' share (:func:`sharding.keep_shard`); a leaf whose
-    stored slice is not its part is gathered whole at use and cut (its
-    gradient reduce-scattered back: the sum of the ranks' partial ones),
-    and one stored whole is cut as it is (its gradient all-reduced)."""
+    to the parts that the heads it computes read (:meth:`part`,
+    :meth:`product`).  Storage is the specs' share
+    (:func:`sharding.keep_shard`); a leaf stored whole is cut as it is
+    (its gradient all-reduced), and at each use of a leaf whose stored
+    slice is not its part :func:`heads_form` picks, from the shapes, what
+    goes over "model": the leaf gathered whole and cut (its gradient
+    reduce-scattered back: the sum of the ranks' partial ones), or the
+    product of the stored slice (:meth:`product`).  ``form``: that
+    choice forced, for tests."""
 
     def __init__(self):
         super().__init__()
         # name -> (the dimension it is gathered along, or None where it
-        # is stored whole; the dimension it is cut along; the pieces)
+        # is stored whole; the dimension it is cut along; the pieces;
+        # a row leaf's head width, or None)
         self.cuts: Dict[str, tuple] = {}
+        self.form: Optional[str] = None
 
     def _leaf(self, name: str, t: torch.Tensor, spec: P, dim: int = 0,
-              pieces: Optional[Pieces] = None) -> None:
+              pieces: Optional[Pieces] = None,
+              unit: Optional[int] = None) -> None:
         """Keep the whole leaf ``t`` as the rank stores it; at use it is
         ``pieces`` along ``dim`` (``None``: whole on every rank, as a
-        norm's weight)."""
+        norm's weight); ``unit``: the width along ``dim`` of one head, of
+        a row leaf the rank's heads read row-parallel."""
         if pieces is not None and not _stored_as_used(t.shape, spec, dim,
                                                       pieces):
-            self.cuts[name] = (model_dim(spec), dim, pieces)
+            self.cuts[name] = (model_dim(spec), dim, pieces, unit)
         setattr(self, name, _param(t, spec))
 
     @property
     def gather_leaves(self) -> Tuple[str, ...]:
-        """The leaves gathered whole over "model" at use."""
+        """The leaves whose stored slice is not their part: at use, each
+        is gathered whole over "model", or its product is exchanged."""
         return tuple(n for n, c in self.cuts.items() if c[0] is not None)
 
     def part(self, name: str) -> torch.Tensor:
@@ -137,14 +199,87 @@ class _Heads(nn.Module):
         w = getattr(self, name)
         if name not in self.cuts:
             return w
-        gdim, dim, pieces = self.cuts[name]
+        gdim, dim, pieces, _ = self.cuts[name]
         if gdim is None:
             w = sharding.copy_to_model(w)
         else:
+            if sharding.model_size() > 1:
+                heads_forms["weights"] += 1
+                heads_moved["weights"] += w.numel() * w.element_size()
             w = sharding.gather_from_model(
                 w, gdim, getattr(w, "leaf_name", name), partial_grad=True)
-        parts = [w.narrow(dim, a, n) for a, n in pieces]
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+        return _cut(w, dim, pieces)
+
+    def product(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """``x @ part(name)``: the product of ``x`` [..., k] with the leaf
+        ``name``'s part on the rank's heads.  Where the leaf is gathered
+        over "model", in the form :func:`heads_form` takes (:attr:`form`
+        where it is set):
+
+        * ``"weights"``: the leaf gathered whole and cut (:meth:`part`);
+        * ``"activations"``, a column leaf: ``x`` times the stored
+          slice, the product's columns gathered (their gradients
+          reduce-scattered back) and cut to the rank's pieces; a row
+          leaf: every rank's head outputs ``x`` (padded to ``⌈h/m⌉``
+          heads, for an equal-size gather) gathered into the whole
+          ``[..., W]``, and its stored rows' columns times the stored
+          slice (stored on its output columns, as the sLSTM's ``out``:
+          the whole times the slice, placed at the slice's columns among
+          zeros), which the caller's :func:`sharding.reduce_from_model`
+          sums as before.  A rank with no head computes on its stored
+          slice all the same, so every collective runs on every rank."""
+        cut = self.cuts.get(name)
+        if cut is None or cut[0] is None or sharding.model_size() == 1:
+            return x @ self.part(name)
+        gdim, dim, pieces, unit = cut
+        w = getattr(self, name)
+        m = sharding.model_size()
+        column = gdim == dim == w.ndim - 1
+        row = dim == 0 and unit is not None
+        if not (column or row):
+            return x @ self.part(name)
+        whole = list(w.shape)
+        whole[gdim] *= m
+        share = -(-whole[0] // unit // m) * unit if row else None
+        args = (math.prod(x.shape[:-1]), *whole, m, x.element_size(),
+                w.element_size(), share)
+        form = self.form or heads_form(*args)
+        if form == "weights":
+            return x @ self.part(name)
+        heads_forms[form] += 1
+        heads_moved[form] += heads_form_bytes(*args)[form]
+        if column:
+            return _cut(sharding.gather_from_model(x @ w, -1,
+                                                   partial_grad=True),
+                        -1, pieces)
+        if x.shape[-1] < share:
+            x = F.pad(x, (0, share - x.shape[-1]))
+        o = sharding.gather_from_model(x, -1, partial_grad=True)
+        spans = [heads_split(whole[0] // unit, m, j) for j in range(m)]
+        o = _cut(o, -1, [(j * share, (hi - lo) * unit)
+                         for j, (lo, hi) in enumerate(spans)])
+        r, n = sharding.model_rank(), w.shape[gdim]
+        if gdim == 0:                   # its stored rows
+            return o.narrow(-1, r * n, n) @ w
+        # stored on its output columns: the rank's columns of the whole
+        # product, in place among zeros for the caller's sum
+        return F.pad(o @ w, (r * n, (m - 1 - r) * n))
+
+
+def force_heads_form(module: nn.Module, form: Optional[str]) -> None:
+    """Force every :class:`_Heads` in ``module`` into ``form`` (one of
+    :data:`FORMS`; ``None``: the rule), for tests."""
+    if form is not None and form not in FORMS:
+        raise ValueError(f"unknown heads form {form!r}: one of {FORMS}")
+    for mod in module.modules():
+        if isinstance(mod, _Heads):
+            mod.form = form
+
+
+def _cut(w: torch.Tensor, dim: int, pieces: Pieces) -> torch.Tensor:
+    """``pieces`` of ``w`` along ``dim``, concatenated in order."""
+    parts = [w.narrow(dim, a, n) for a, n in pieces]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
 
 def _ones(cfg: ModelConfig, gen: torch.Generator) -> nn.Parameter:
@@ -193,7 +328,7 @@ class _AttnParams(_Heads):
     rank computes the query heads ``heads = [lo, hi)`` of
     :func:`heads_split` and the K/V heads ``kv = [klo, khi)`` they read:
     ``wq`` / ``wk`` / ``wv`` column-parallel on those heads, ``wo``
-    row-parallel on its query heads' rows (``tp``; :meth:`_Heads.part`).
+    row-parallel on its query heads' rows (``tp``; :meth:`_Heads.product`).
     ``kv_counts``: how many of its query heads read each of its K/V
     heads, in order; unequal where its query heads straddle two K/V
     groups, and the K/V heads are then repeated to the query heads before
@@ -217,7 +352,7 @@ class _AttnParams(_Heads):
             self._leaf(n, _init_dense(gen, d, kv * hd, dt), sp[n], 1,
                        _spans(*self.kv, hd))
         self._leaf("wo", _init_dense(gen, h * hd, d, dt), sp["wo"], 0,
-                   _spans(lo, hi, hd))
+                   _spans(lo, hi, hd), hd)
         self.tp = sharding.build_size() > 1
 
     def kv_heads(self) -> int:
@@ -285,10 +420,12 @@ def _mlp_specs(cfg: ModelConfig, prefix: str, d_ff: int) -> Dict[str, P]:
     return _prefixed(prefix, _mlp_leaf_specs(cfg, d_ff))
 
 
-def _heads_of(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor
-              ) -> torch.Tensor:
-    """``x`` [B,S,d] @ ``w`` [d, n·hd] as n heads, [B,S,n,hd]."""
-    return (x @ w).reshape(*x.shape[:2], w.shape[1] // cfg.hd, cfg.hd)
+def _heads_of(cfg: ModelConfig, x: torch.Tensor, p: _AttnParams,
+              name: str) -> torch.Tensor:
+    """``x`` [B,S,d] times ``p``'s part of ``name`` [d, n·hd] as n heads,
+    [B,S,n,hd]."""
+    y = p.product(name, x)
+    return y.reshape(*x.shape[:2], y.shape[-1] // cfg.hd, cfg.hd)
 
 
 def _qkv(cfg: ModelConfig, p: "_AttnParams", x: torch.Tensor,
@@ -299,8 +436,8 @@ def _qkv(cfg: ModelConfig, p: "_AttnParams", x: torch.Tensor,
     ``positions`` when they are given (self-attention only), M-RoPE for
     ``cfg.m_rope``."""
     xk = x if x_kv is None else x_kv
-    q = _heads_of(cfg, x, p.part("wq"))
-    k, v = (_heads_of(cfg, xk, p.part(n)) for n in ("wk", "wv"))
+    q = _heads_of(cfg, x, p, "wq")
+    k, v = (_heads_of(cfg, xk, p, n) for n in ("wk", "wv"))
     if positions is not None:
         rope = apply_m_rope if cfg.m_rope else apply_rope
         q = rope(q, positions, cfg.rope_theta)
@@ -327,7 +464,7 @@ def _self_attention(cfg: ModelConfig, p: _AttnParams, x: torch.Tensor,
     """``x`` [B,S,d] (normed) -> the attention's output projected by
     ``wo`` (row-parallel: summed over "model")."""
     o = _attn_heads(cfg, p, x, off, force_chunked, causal, window)
-    return _row(o @ p.part("wo"), p.tp)
+    return _row(p.product("wo", o), p.tp)
 
 
 def _self_decode(cfg: ModelConfig, p: _AttnParams,
@@ -342,7 +479,7 @@ def _self_decode(cfg: ModelConfig, p: _AttnParams,
     kc, vc = attn_lib.update_cache(cache["k"], cache["v"], k, v, pos)
     o = _attend(p, q, kc, vc, lambda q, k, v: attn_lib.decode_attention(
         q, k, v, pos + 1, window=window))
-    return _row(o.flatten(2) @ p.part("wo"), p.tp)
+    return _row(p.product("wo", o.flatten(2)), p.tp)
 
 
 class AttnBlock(nn.Module):
@@ -401,7 +538,7 @@ class AttnBlock(nn.Module):
                            x_kv=_column(enc_out, xa.tp))
             o = _attend(xa, q, k, v, lambda q, k, v: attn_lib.attention(
                 q, k, v, causal=False, chunk=0, force_chunked=force_chunked))
-            x = x + _row(o.flatten(2) @ xa.part("wo"), xa.tp)
+            x = x + _row(xa.product("wo", o.flatten(2)), xa.tp)
         return x + _mlp(rms_norm(x, self.ln2), self.mlp), _no_aux(x)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
@@ -416,8 +553,7 @@ class AttnBlock(nn.Module):
         ``xv`` [B,S_enc,KV,hd] (this rank's K/V heads), projected by
         ``xattn`` as ``forward`` projects them."""
         xc = _column(enc_out, self.xattn.tp)
-        k, v = (_heads_of(self.cfg, xc, self.xattn.part(n))
-                for n in ("wk", "wv"))
+        k, v = (_heads_of(self.cfg, xc, self.xattn, n) for n in ("wk", "wv"))
         return dict(xk=k, xv=v)
 
     def decode(self, cache: Dict[str, torch.Tensor], x_t: torch.Tensor,
@@ -432,11 +568,11 @@ class AttnBlock(nn.Module):
         if self.cross and "xk" in cache:
             xa = self.xattn
             q = _heads_of(self.cfg, _column(rms_norm(x_t, self.lnx), xa.tp),
-                          xa.part("wq"))
+                          xa, "wq")
             o = _attend(xa, q, cache["xk"], cache["xv"],
                         lambda q, k, v: attn_lib.decode_attention(
                             q, k, v, k.shape[1]))
-            x_t = x_t + _row(o.flatten(2) @ xa.part("wo"), xa.tp)
+            x_t = x_t + _row(xa.product("wo", o.flatten(2)), xa.tp)
         return x_t + _mlp(rms_norm(x_t, self.ln2), self.mlp)
 
 
@@ -637,7 +773,7 @@ class Mamba2Block(_Heads):
             self._leaf(name, torch.full((nh,), fill, **f32), sp[name], 0,
                        _spans(lo, hi, 1))
         self._leaf("out_proj", _init_dense(gen, d_in, d, dt), sp["out_proj"],
-                   0, _spans(lo, hi, hdim))
+                   0, _spans(lo, hi, hdim), hdim)
 
     def param_specs(self) -> Dict[str, P]:
         d_in, _, nh, n, _ = _mamba_dims(self.cfg)
@@ -652,7 +788,7 @@ class Mamba2Block(_Heads):
         of its heads."""
         _, hdim, _, n, _ = _mamba_dims(self.cfg)
         nl = self.heads[1] - self.heads[0]
-        zxbcdt = _column(rms_norm(x, self.ln), self.tp) @ self.part("in_proj")
+        zxbcdt = self.product("in_proj", _column(rms_norm(x, self.ln), self.tp))
         z = zxbcdt[..., :nl * hdim]
         xbc, conv_state = _causal_conv(
             zxbcdt[..., nl * hdim:2 * nl * hdim + 2 * n], self.part("conv_w"),
@@ -669,7 +805,7 @@ class Mamba2Block(_Heads):
     def _out(self, x, y):
         """``y`` [B,S,nl·64] (gated) through the rank's rows of
         ``out_proj``, summed over "model", added to ``x``."""
-        return x + _row(y @ self.part("out_proj"), self.tp).to(x.dtype)
+        return x + _row(self.product("out_proj", y), self.tp).to(x.dtype)
 
     def head_outputs(self, x: torch.Tensor) -> torch.Tensor:
         """The SSD's output on the rank's heads with the ``d_skip`` term,
@@ -755,7 +891,7 @@ class MlstmBlock(_Heads):
         self._leaf("wif", _init_dense(gen, dp, 2 * h, dt), sp["wif"], 1,
                    _spans(lo, hi, 1, 0, h))
         self._leaf("down", _init_dense(gen, dp, d, dt), sp["down"], 0,
-                   _spans(lo, hi, hd))
+                   _spans(lo, hi, hd), hd)
 
     def param_specs(self) -> Dict[str, P]:
         dp, _, _ = _mlstm_dims(self.cfg)
@@ -768,18 +904,17 @@ class MlstmBlock(_Heads):
         z of the rank's heads, from ``x``."""
         dp, _, _ = _mlstm_dims(self.cfg)
         nl = self.heads[1] - self.heads[0]
-        up = _column(rms_norm(x, self.ln), self.tp) @ self.part("up")
+        up = self.product("up", _column(rms_norm(x, self.ln), self.tp))
         xm, z = up[..., :dp], up[..., dp:]
-        q = (xm @ self.part("wq")).reshape(shape)
-        k = (xm @ self.part("wk")).reshape(shape)
-        v = (xm @ self.part("wv")).reshape(shape)
+        q, k, v = (self.product(n, xm).reshape(shape)
+                   for n in ("wq", "wk", "wv"))
         gates = xm @ self.part("wif")
         return q, k, v, gates[..., :nl], gates[..., nl:], z
 
     def _out(self, x, y):
         """``y`` [..., nl·hd] (gated) through the rank's rows of ``down``,
         summed over "model", added to ``x``."""
-        return x + _row(y @ self.part("down"), self.tp)
+        return x + _row(self.product("down", y), self.tp)
 
     def head_outputs(self, x: torch.Tensor) -> torch.Tensor:
         """The mLSTM's output on the rank's heads, gated by SiLU(z),
@@ -836,8 +971,10 @@ class SlstmBlock(_Heads):
     The recurrence is block-diagonal by head, so a rank computes its
     heads ``heads = [lo, hi)`` of :func:`heads_split` with no collective
     inside the loop: their four gates' columns of ``wx``, their blocks of
-    ``r``, and ``out`` row-parallel on their rows (each of the three
-    gathered at use where the specs' slice is not that part)."""
+    ``r``, and ``out`` row-parallel on their rows.  Where the specs'
+    slice is not that part, ``wx``'s and ``out``'s products or the
+    leaves themselves are exchanged (:func:`heads_form`); ``r`` is
+    gathered whole (stored on ``hd``, cut on heads)."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator):
         super().__init__()
@@ -855,7 +992,7 @@ class SlstmBlock(_Heads):
         self._leaf("r", _draw(gen, (4, h, hd, hd), 0.3 / math.sqrt(hd), dt),
                    sp["r"], 1, _spans(lo, hi, 1))
         self._leaf("out", _init_dense(gen, d, d, dt), sp["out"], 0,
-                   _spans(lo, hi, hd))
+                   _spans(lo, hi, hd), hd)
 
     def param_specs(self) -> Dict[str, P]:
         d = self.cfg.d_model
@@ -868,13 +1005,13 @@ class SlstmBlock(_Heads):
         (before ``out``)."""
         b, s, d = x.shape
         nl = self.heads[1] - self.heads[0]
-        parts = (_column(rms_norm(x, self.ln), self.tp) @ self.part("wx")
-                 ).reshape(b, s, 4, nl, d // self.cfg.n_heads)
+        parts = self.product("wx", _column(rms_norm(x, self.ln), self.tp)
+                             ).reshape(b, s, 4, nl, d // self.cfg.n_heads)
         ys, state = ssm_lib.slstm_scan(parts, self.part("r"), state)
         return ys.to(x.dtype).flatten(2), state
 
     def _out(self, x, ys):
-        return x + _row(ys @ self.part("out"), self.tp)
+        return x + _row(self.product("out", ys), self.tp)
 
     def head_outputs(self, x: torch.Tensor) -> torch.Tensor:
         """The sLSTM's ``h`` on the rank's heads [B,S,nl·hd] (before

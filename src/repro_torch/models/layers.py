@@ -16,6 +16,29 @@ import math
 import torch
 import torch.nn.functional as F
 
+#: the CPU's vector-math functions the models call (through MKL's vector
+#: math where torch is built with it)
+CPU_VECTOR_MATH = (torch.cos, torch.sin, torch.exp, torch.log, torch.tanh,
+                   torch.sqrt, torch.erf)
+
+
+def _init_cpu_vector_math() -> None:
+    """Call each of :data:`CPU_VECTOR_MATH` once, on one element, on the
+    importing thread.  MKL's vector math, first called from several
+    OpenMP threads at once, can return low-accuracy values: the first
+    ``torch.cos`` of a process on 4,160 fp32 angles up to 519 rad was up
+    to 1.5e-4 off (3.5e-8 after) in about 1 of 60 fresh processes, and
+    one rank's rotated queries then moved the sharded parity runs'
+    gradients 2e-5 to 6e-5 from the world of one's
+    (``tests/test_torch_cpu_trig.py``).  A first call on one thread
+    initialises it for the process."""
+    z = torch.zeros(1)
+    for f in CPU_VECTOR_MATH:
+        f(z)
+
+
+_init_cpu_vector_math()
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 

@@ -33,7 +33,7 @@ Public surface::
                                   #  [, "frontend"]}
     specs = m.param_specs()       # {parameter name: sharding.P}
     layout = m.layout()           # {parameter name: Leaf}: what is sharded
-                                  # and what gathered at use
+                                  # and what is not the rank's part
     heads = m.computed_heads()    # {module name: (lo, hi)}: this rank's
 
 A vision-language model (``cfg.frontend == "vision"``, qwen2-vl) takes
@@ -165,8 +165,9 @@ class Leaf:
     """How a rank holds one parameter over a ("data", "model") mesh:
     ``spec`` its partition spec; ``shard_dim`` the dimension it is stored
     sliced along over "model" (``None``: whole); ``gather`` ``"use"``
-    (stored sliced, gathered whole over "model" where it is used and cut
-    to the part the rank's heads read) or ``None``; ``data_dim`` the
+    (stored sliced, and the slice is not the part the rank's heads read:
+    at each use the leaf is gathered whole over "model" and cut, or its
+    product is exchanged instead, by ``blocks.heads_form``) or ``None``; ``data_dim`` the
     dimension its spec shards over "data"; ``width_dim`` the dimension it
     is stored sliced along over "data" (the experts' hidden width, in a
     model built with ``dp=(rank, D)``, D > 1; ``None``: whole over
@@ -437,8 +438,9 @@ class Model(nn.Module):
         """The one rule of what a rank of this model's "model" group holds
         and gathers, by parameter name (:class:`Leaf`).  A leaf whose spec
         names "model" is stored sliced; it is computed on as it is where
-        its slice is the part the rank's heads read, and gathered at use
-        (``gather="use"``) where it is not (``blocks._Heads``).  A leaf
+        its slice is the part the rank's heads read, and where it is not
+        (``gather="use"``) each use gathers it whole or exchanges its
+        product (``blocks._Heads.product``).  A leaf
         whose spec names "data" (the experts' hidden width) is stored
         sliced along it in a model built with ``dp=(rank, D)``
         (``width_dim``), and whole otherwise."""

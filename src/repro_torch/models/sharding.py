@@ -34,8 +34,10 @@ and of the MLP's hidden units: column-parallel products into them, each
 row-parallel product out of them followed by one
 :func:`reduce_from_model`, experts parallel over "model", the vocabulary
 sharded at both ends.  Where a stored slice is not the part the rank's
-heads read, the leaf is gathered whole at use and cut
-(:func:`gather_from_model` with ``partial_grad``).
+heads read, each use exchanges, by ``blocks.heads_form``'s byte count,
+the leaf (gathered whole and cut) or the product of the stored slice
+(gathered and cut), both by :func:`gather_from_model` with
+``partial_grad``.
 :func:`parallel` declares, for the duration of a step, the "model" and
 "data" :class:`Axis` (a process group, its size and this rank's index in
 it) that the model's collectives run over, and the "width" axis that the
@@ -48,8 +50,9 @@ rank's slice of it, :func:`build_shards`):
 * :func:`reduce_from_model`: all-reduce forward, identity backward (the
   output of a row-parallel product);
 * :func:`gather_from_model`: all-gather forward, the rank's own slice
-  backward (the router's logits, and the few leaves gathered at use),
-  or a reduce-scatter where each rank's gradient is partial;
+  backward (the router's logits), or a reduce-scatter where each rank's
+  gradient is partial (a leaf whose slice is not the rank's part, or
+  its product);
 * :func:`sum_over_data`: all-reduce forward and backward (the
   mixture-of-experts' batch statistics, whose gradient every data rank's
   loss carries);
@@ -552,8 +555,8 @@ def gather_from_model(x: torch.Tensor, dim: int,
     """All-gather over "model" along ``dim`` forward; backward, this
     rank's slice of the gradient, which every rank of the group holds
     whole, or with ``partial_grad`` of the sum of the ranks' partial
-    gradients (a reduce-scatter); ``leaf`` names a weight gathered at
-    use."""
+    gradients (a reduce-scatter); ``leaf`` names a weight gathered
+    whole."""
     return _GatherFromModel.apply(x, dim, leaf, partial_grad) \
         if _live(_MODEL) else x
 

@@ -123,6 +123,76 @@ def test_arctic_cells_are_no_longer_bound_by_the_data_exchange():
     assert t_data < r["t_memory_s"]
 
 
+#: the decode cells' "model" all-gather bytes when every use of a leaf
+#: whose stored slice is not the rank's part gathered the leaf whole
+#: (the records before ``blocks.heads_form``), where there were any
+LEAF_FORM_GATHERS = {
+    ("arctic-480b", "decode_32k", "16x16"): 517872320,
+    ("arctic-480b", "decode_32k", "2x16x16"): 515855200,
+    ("command-r-35b", "decode_32k", "16x16"): 83886080,
+    ("command-r-35b", "decode_32k", "2x16x16"): 83886080,
+    ("gemma3-12b", "decode_32k", "16x16"): 94371840,
+    ("gemma3-12b", "decode_32k", "2x16x16"): 94371840,
+    ("gemma3-12b", "long_500k", "16x16"): 94371840,
+    ("gemma3-12b", "long_500k", "2x16x16"): 94371840,
+    ("kimi-k2-1t-a32b", "decode_32k", "16x16"): 105259648,
+    ("kimi-k2-1t-a32b", "decode_32k", "2x16x16"): 101695296,
+    ("mistral-nemo-12b", "decode_32k", "16x16"): 52428800,
+    ("mistral-nemo-12b", "decode_32k", "2x16x16"): 52428800,
+    ("qwen2-vl-7b", "decode_32k", "16x16"): 102760448,
+    ("qwen2-vl-7b", "decode_32k", "2x16x16"): 102760448,
+    ("starcoder2-7b", "decode_32k", "16x16"): 188743680,
+    ("starcoder2-7b", "decode_32k", "2x16x16"): 188743680,
+    ("xlstm-350m", "decode_32k", "16x16"): 37748736,
+    ("xlstm-350m", "decode_32k", "2x16x16"): 37748736,
+    ("xlstm-350m", "long_500k", "16x16"): 37748736,
+    ("xlstm-350m", "long_500k", "2x16x16"): 37748736,
+    ("zamba2-2.7b", "decode_32k", "16x16"): 150451200,
+    ("zamba2-2.7b", "decode_32k", "2x16x16"): 150451200,
+    ("zamba2-2.7b", "long_500k", "16x16"): 150451200,
+    ("zamba2-2.7b", "long_500k", "2x16x16"): 150451200}
+#: the JAX package's own collective bytes of zamba2 ``decode_32k`` on
+#: 16x16 (``python -m repro.launch.dryrun``, CPU counts)
+REFERENCE_ZAMBA2_DECODE = 1.06e7
+#: the leaves that keep the weights form at decode: the sLSTM's ``r``
+#: (stored on ``hd``, cut on heads), 12 layers
+SLSTM_LEAVES = {"xlstm-350m": 12}
+
+
+def test_decode_records_exchange_the_products():
+    """Every decode and ``long_500k`` record: each use of a leaf whose
+    slice is not the rank's part took the activations form but the
+    sLSTM's ``r``, which alone is gathered whole (one use a step); each
+    record that gathered a leaf before gathers fewer
+    bytes; zamba2's cells move at most the reference's "model" bytes,
+    and they, xlstm's and arctic's ``decode_32k`` on 2x16x16 are
+    memory-bound."""
+    for key, r in _records().items():
+        arch, shape, mesh = key
+        if r.get("status") != "ok" or r["kind"] not in ("decode",
+                                                         "long_decode"):
+            continue
+        kept = SLSTM_LEAVES.get(arch, 0)
+        assert r["heads_forms"].get("weights", 0) == kept, key
+        assert r["leaf_gathers"].get("model", 0) == kept, key
+        if key in LEAF_FORM_GATHERS:
+            assert r["heads_forms"]["activations"] > 0, key
+            assert r["coll_all-gather"] < LEAF_FORM_GATHERS[key], key
+        if arch == "zamba2-2.7b":
+            assert r["coll_by_axis"]["model"] <= REFERENCE_ZAMBA2_DECODE
+        if arch in ("zamba2-2.7b", "xlstm-350m") or key == (
+                "arctic-480b", "decode_32k", "2x16x16"):
+            assert r["bottleneck"] == "memory", key
+
+
+def test_train_and_prefill_records_gather_the_leaves():
+    """A train or prefill step's rows (thousands a rank) make the leaf
+    the cheaper exchange: no use there took the activations form."""
+    for key, r in _records().items():
+        if r.get("status") == "ok" and r["kind"] in ("train", "prefill"):
+            assert "activations" not in r["heads_forms"], key
+
+
 def _spy_subprocess(monkeypatch):
     calls = []
     real = subprocess.run

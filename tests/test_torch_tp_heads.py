@@ -63,7 +63,7 @@ def _leaves(tree, prefix=""):
     return out
 
 
-def check_block_heads(tmp_path, kind, arch, m, **kw):
+def check_block_heads(tmp_path, kind, arch, m, form=None, **kw):
     """One block of ``kind`` over a "model" group of ``m`` gloo ranks
     (``selftest.block_heads``) against the reference's block of the same
     weights (``build_<kind>``; its norms and Mamba-2's per-head scalars
@@ -74,7 +74,8 @@ def check_block_heads(tmp_path, kind, arch, m, **kw):
     ``wo``; a recurrent block: through the whole out-projection, with the
     residual, its block's output); every rank's block output (the
     row-parallel sum) and its first ``DECODE_STEPS`` decode outputs are
-    the reference's."""
+    the reference's.  ``form``: the leaves' exchange forced into it
+    (``blocks.force_heads_form``; ``None``: the rule's)."""
     rcfg = dataclasses.replace(ref_smoke_config(arch), **F32, **kw)
     cfg = dataclasses.replace(smoke_config(arch), **F32, **kw)
     params, _ = ref_blocks.BUILDERS[kind](rcfg, jax.random.PRNGKey(3))
@@ -88,7 +89,7 @@ def check_block_heads(tmp_path, kind, arch, m, **kw):
     x = rng.standard_normal((2, 2 * rcfg.ssm_chunk, rcfg.d_model)
                             ).astype(np.float32)
     outs = _spawn(tmp_path, selftest.block_heads, m,
-                  (cfg, kind, leaves, x, DECODE_STEPS))
+                  (cfg, kind, leaves, x, DECODE_STEPS, form))
     jx = jnp.asarray(x)
     ref, _ = ref_blocks.TRAIN_FNS[kind](rcfg, params, jx, 0, None)
     heads = np.concatenate([o["head_outputs"] for o in outs], axis=-1)
