@@ -3371,6 +3371,12 @@ DIST_HEADS_DECODE = dict(cases=(("mamba2", "zamba2-2.7b"),
                                 ("mlstm", "xlstm-350m"),
                                 ("slstm", "xlstm-350m")),
                          mesh=(1, 2), seq=64, steps=8)
+# and the mLSTM's value split (``blocks.value_split``) the same way on
+# (1, 8), eight gloo ranks: 4 heads of 512 over 8 ranks, each rank one
+# head's q / k whole and 256 of its value channels (``wv`` and ``down``
+# then stored as used; ``up``, ``wq``, ``wk`` exchanged)
+DIST_HEADS_VALUES = dict(cases=(("mlstm", "xlstm-350m"),), mesh=(1, 8),
+                         seq=64, steps=8)
 DIST_DECODE_REL_RMS = 1e-3
 # zamba2's fp32 floor lies above those bounds: its Mamba-2 per-head fp32
 # scalars (``a_log``, ``d_skip``, ``dt_bias``) take gradients summed over
@@ -3445,7 +3451,8 @@ def _parity_checked(outs, what, floor_k=0.0):
                              "first_step_leaf_rel_norm", "param_bytes",
                              "spec_param_bytes", "leaf_gathers",
                              "coll_bytes", "coll_bytes_by_axis",
-                             "moe_width_forms", "step_peak_bytes")}
+                             "moe_width_forms", "step_peak_bytes",
+                             "seconds_by_part")}
     _shares_checked(outs, what)
     # the copies of leaves held alike each rank held to rank 0's, bit for
     # bit; each rank's heads and the shapes of its leaves, by block kind
@@ -3604,27 +3611,51 @@ def _moe_forms(device_type):
 
 
 def _heads_decode(device_type):
-    """``DIST_HEADS_DECODE`` on gloo ranks sharing the card: each block in
+    """``DIST_HEADS_DECODE``, then ``DIST_HEADS_VALUES`` under ``values``
+    (:func:`_heads_decode_run`)."""
+    out = _heads_decode_run(device_type, DIST_HEADS_DECODE)
+    out["values"] = _heads_decode_run(device_type, DIST_HEADS_VALUES)
+    return out
+
+
+def _heads_decode_run(device_type, run):
+    """``run``'s blocks on gloo ranks sharing the card: each block in
     each heads form forced and under the rule, against the world of one
     within DIST_DECODE_REL_RMS; in the decode steps, the rule takes the
     activations form wherever a leaf has it (the calls by form equal the
     forced activations form's), and each form's "model" all-gathers move
-    the bytes the rule counts; the milliseconds a decode step of each
+    the bytes the rule counts; each rank computes the heads of
+    ``blocks.heads_split`` (the mLSTM's heads and value channels of
+    ``blocks.value_split``); the milliseconds a decode step of each
     form, recorded beside the card (not gated)."""
     from repro_torch.configs import get_config
     from repro_torch.distributed import selftest
     from repro_torch.distributed.launch import spawn
-    run = DIST_HEADS_DECODE
+    from repro_torch.models import blocks
+    m = run["mesh"][1]
     cases = [(_fp32(get_config(arch), ssm_chunk=run["seq"]), kind)
              for kind, arch in run["cases"]]
     t0 = time.perf_counter()
-    outs = spawn(selftest.heads_decode_forms, run["mesh"][1],
+    outs = spawn(selftest.heads_decode_forms, m,
                  (cases, LM_DECODE[0], run["seq"], run["steps"]),
                  device_type=device_type, backend="gloo", timeout=900.0)
+    cfg_of = {kind: cfg for cfg, kind in cases}
     for q, o in enumerate(outs):
         for kind, by_form in o.items():
+            cfg = cfg_of[kind]
             what = f"heads decode {kind} {run['mesh']}: rank {q}"
+            if kind == "mlstm":
+                _, h, hd = blocks._mlstm_dims(cfg)
+                want = blocks.value_split(h, hd, m, q)
+            else:
+                h = blocks._mamba_dims(cfg)[2] if kind == "mamba2" else \
+                    cfg.n_heads
+                want = blocks.heads_split(h, m, q)
             for form, r in by_form.items():
+                got = tuple(next(iter(r["heads"].values()))) + tuple(
+                    r["channels"] or ())
+                check(got == want, f"dist: {what}: {form}: computes "
+                      f"{got}, the split gives {want}")
                 check(r["rel_rms"] <= DIST_DECODE_REL_RMS,
                       f"dist: {what}: {form}: {r['rel_rms']} of the world "
                       f"of one's rms (limit {DIST_DECODE_REL_RMS})")
@@ -3646,6 +3677,9 @@ def _heads_decode(device_type):
         by_case={kind: {form: dict(
             rel_rms=[o[kind][form]["rel_rms"] for o in outs],
             decode_ms=[o[kind][form]["decode_ms"] for o in outs],
+            heads_by_rank=[list(o[kind][form]["heads"].values())[0] +
+                           (o[kind][form]["channels"] or [])
+                           for o in outs],
             heads_forms=outs[0][kind][form]["heads_forms"],
             model_bytes=outs[0][kind][form]["model_bytes"],
             rule_bytes=outs[0][kind][form]["heads_moved"])

@@ -24,6 +24,7 @@ exact.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import math
 import shutil
@@ -160,7 +161,13 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
 
     ``form``: the sharded model's heads exchange forced into that form
     (``blocks.force_heads_form``); ``heads_forms``: the sharded steps'
-    calls by form."""
+    calls by form.
+
+    ``seconds_by_part``: this rank's wall seconds (the device
+    synchronised) by run (``one``, ``floor``, ``sharded``) and part: the
+    build, the gradients, the steps, the host copies of whole leaves,
+    the first update's prediction, the replicas' digests, and the
+    comparison."""
     import torch.distributed as dist
 
     from ..launch.mesh import make_test_mesh
@@ -181,11 +188,14 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
     judge = dist.get_rank() == 0
     runs, nudged, first, k_one, checks = [], [], None, None, 0
     kinds = ("one",) + ((math.inf, -math.inf) if floor else ())
+    spent: Dict[str, float] = {}
     for kind in (kinds if judge else ()) + ("sharded",):
         sharded = kind == "sharded"
-        model = Model(cfg, device=dev,
-                      **(mesh_places(mesh) if sharded else {}),
-                      generator=torch.Generator(device=dev).manual_seed(0))
+        run = (kind if isinstance(kind, str) else "floor") + ": "
+        with _timed(spent, run + "build", dev):
+            model = Model(cfg, device=dev,
+                          **(mesh_places(mesh) if sharded else {}),
+                          generator=torch.Generator(device=dev).manual_seed(0))
         if not isinstance(kind, str):       # one ulp toward +-inf
             with torch.no_grad():
                 model.embed.copy_(torch.nextafter(
@@ -198,16 +208,22 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
         if sharded:
             rows = {k: sharding.shard_of(v, 0, dax.rank, dax.size)
                     for k, v in data.items()}
-            with sharding.parallel(model=ax, data=dax, width=wax):
+            with _timed(spent, run + "gradients", dev), \
+                    sharding.parallel(model=ax, data=dax, width=wax):
                 _, grads = loss_and_grads(model, rows)
-            # a slice of the experts' width has seen every row already
-            grads = {n: (g.float() if layout[n].width_dim is not None else
-                         sharding.all_reduce(g.float(), dax)) / dax.size
-                     for n, g in grads.items()}
-            checks += _replicas_checked(grads, layout, ax, dax, "gradients")
+                # a slice of the experts' width has seen every row already
+                grads = {n: (g.float() if layout[n].width_dim is not None
+                             else sharding.all_reduce(g.float(), dax)) /
+                         dax.size for n, g in grads.items()}
+            with _timed(spent, run + "replicas", dev):
+                checks += _replicas_checked(grads, layout, ax, dax,
+                                            "gradients")
         else:
-            _, grads = loss_and_grads(model, data)
-        grads = _whole(grads, layout, ax if sharded else None, dax, judge)
+            with _timed(spent, run + "gradients", dev):
+                _, grads = loss_and_grads(model, data)
+        with _timed(spent, run + "host copies", dev):
+            grads = _whole(grads, layout, ax if sharded else None, dax,
+                           judge)
         state = opt.init(params, ocfg)
         step = build_sharded_train_step(model, ocfg, state, mesh) \
             if sharded else build_train_step(model, ocfg, state)
@@ -216,30 +232,38 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
         blocks.heads_forms.clear()
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        out = step(data)
-        losses = [float(out["loss"])]
+        with _timed(spent, run + "steps", dev):
+            out = step(data)
+            losses = [float(out["loss"])]
         step_one = sharding.stats.as_dict()     # the steps' own, not the
         # first update's scalars, as the step took them from its norm
         k = opt.step_scalars(opt.OptState(
             torch.zeros((), dtype=torch.int32), {}, {}),
             out["grad_norm"].float().cpu(), ocfg)
         if sharded:
-            checks += _replicas_checked(params, layout, ax, dax, "step 1")
-            first = _first_step(first, params, layout, ax,
-                                runs[0][1] if judge else None, grads,
-                                (k_one, k), ocfg, dax=dax)
+            with _timed(spent, run + "replicas", dev):
+                checks += _replicas_checked(params, layout, ax, dax,
+                                            "step 1")
+            with _timed(spent, run + "first step", dev):
+                first = _first_step(first, params, layout, ax,
+                                    runs[0][1] if judge else None, grads,
+                                    (k_one, k), ocfg, dax=dax)
         elif kind == "one":
-            first, k_one = _whole({n: p.detach() for n, p in
-                                   params.items()}, layout, None), k
+            with _timed(spent, run + "host copies", dev):
+                first, k_one = _whole({n: p.detach() for n, p in
+                                       params.items()}, layout, None), k
         sharding.stats.reset()                  # comparison's gathers
         for i in range(2, steps + 1):
-            losses.append(float(step(data)["loss"]))
+            with _timed(spent, run + "steps", dev):
+                losses.append(float(step(data)["loss"]))
             if sharded:
-                checks += _replicas_checked(params, layout, ax, dax,
-                                            f"step {i}")
+                with _timed(spent, run + "replicas", dev):
+                    checks += _replicas_checked(params, layout, ax, dax,
+                                                f"step {i}")
         coll = _added(step_one, sharding.stats.as_dict())
-        final = _whole({n: p.detach() for n, p in params.items()}, layout,
-                       ax if sharded else None, dax, judge)
+        with _timed(spent, run + "host copies", dev):
+            final = _whole({n: p.detach() for n, p in params.items()},
+                           layout, ax if sharded else None, dax, judge)
         if sharded:
             report = dict(**_held(params, layout, ax, dax),
                           replica_checks=checks,
@@ -258,9 +282,11 @@ def sharded_step_parity(cfg, shape: Tuple[int, int], batch: int = 4,
         (runs if isinstance(kind, str) else nudged).append(
             (losses, grads, final))
         del model, step, state
-    figures = [_compared(runs, nudged, first) if judge else None]
-    dist.broadcast_object_list(figures, src=0)
-    return dict(mesh=list(shape), steps=steps, **figures[0], **report)
+    with _timed(spent, "compare", dev):
+        figures = [_compared(runs, nudged, first, dev) if judge else None]
+        dist.broadcast_object_list(figures, src=0)
+    return dict(mesh=list(shape), steps=steps, **figures[0], **report,
+                seconds_by_part=spent)
 
 
 def sharded_losses(cfg, shape: Tuple[int, ...], batch: int = 4,
@@ -442,8 +468,8 @@ def _replicas_checked(tensors: Dict[str, torch.Tensor], layout, ax, dax,
                 leaf.width_dim is None and dax.size > 1):
             part = (ax.rank if leaf.shard_dim is not None else None,
                     dax.rank if leaf.width_dim is not None else None)
-            raw = t.detach().contiguous().reshape(-1).view(
-                torch.uint8).cpu().numpy()
+            raw = _host_copy(t, t.dtype).reshape(-1).view(
+                torch.uint8).numpy()
             mine[n] = (part, zlib.crc32(raw.data))
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)
@@ -463,12 +489,12 @@ def _replicas_checked(tensors: Dict[str, torch.Tensor], layout, ax, dax,
     return compared
 
 
-def _compared(runs, nudged, first) -> Dict:
+def _compared(runs, nudged, first, dev=None) -> Dict:
     """The world of one's run and the sharded one's, each ``(losses,
-    gradients, leaves)``, compared: every figure of every leaf, and the
-    worst of each with its leaf; with ``nudged`` (the world of one's runs
-    one ulp apart) their floors."""
-    figures = _figures(*runs)
+    gradients, leaves)``, compared (on ``dev``, :func:`_figures`): every
+    figure of every leaf, and the worst of each with its leaf; with
+    ``nudged`` (the world of one's runs one ulp apart) their floors."""
+    figures = _figures(*runs, dev=dev)
     out = dict(losses_single=runs[0][0], losses_sharded=runs[1][0],
                loss_rel_err=figures["loss_rel_err"]["loss"],
                figures=figures, **first)
@@ -481,7 +507,7 @@ def _compared(runs, nudged, first) -> Dict:
                     f"worst_{kind}_rel_norm": max(
                         figures[f"{kind}_rel_norm"].values())})
     if nudged:
-        each = [_figures(runs[0], run) for run in nudged]
+        each = [_figures(runs[0], run, dev=dev) for run in nudged]
         out["floors"] = {f: {n: max(v[f][n] for v in each)
                              for n in each[0][f]} for f in FIGURES}
     return out
@@ -494,7 +520,8 @@ def block_heads(cfg, kind: str, leaves: Optional[Dict[str, np.ndarray]],
     shards of a "model" group of every rank (each rank calls it), its
     leaves the whole numpy ``leaves`` (by parameter name) sliced as the
     build slices them (``None``: the block's own draws from seed 0, the
-    world of one's, sliced): the heads it computes, their outputs on
+    world of one's, sliced): the heads it computes (an mLSTM's value
+    ``channels`` of each too; ``None`` for another kind), their outputs on
     ``x`` [B,S,d] before the row-parallel product (``head_outputs``),
     the block's output (summed over "model"), and its ``decode`` outputs
     on the first ``decode_steps`` positions of ``x``, all as numpy;
@@ -544,6 +571,8 @@ def block_heads(cfg, kind: str, leaves: Optional[Dict[str, np.ndarray]],
     got = {n: mod.heads for n, mod in blk.named_modules()
            if isinstance(getattr(mod, "heads", None), tuple)}
     return dict(heads={n or kind: list(h) for n, h in got.items()},
+                channels=(list(blk.channels) if hasattr(blk, "channels")
+                          else None),
                 head_outputs=heads.float().cpu().numpy(),
                 out=y.float().cpu().numpy(),
                 decode=[t.float().cpu().numpy() for t in steps],
@@ -564,7 +593,8 @@ def heads_decode_forms(cases, batch: int, seq: int, steps: int) -> Dict:
     each decode step, of the block's own output (its output less its
     input) against the world of one's; the decode steps' calls by form,
     the rule's bytes for them, their "model" collectives' bytes and
-    their milliseconds a step, by kind and form."""
+    their milliseconds a step, and the rank's heads and (an mLSTM's)
+    value channels, by kind and form."""
     from ..models import blocks
     out = {}
     for cfg, kind in cases:
@@ -584,7 +614,8 @@ def heads_decode_forms(cases, batch: int, seq: int, steps: int) -> Dict:
                                   np.sqrt(np.mean(w ** 2)))
                             for h, w in zip(have, want)),
                 **{k: got[k] for k in ("heads_forms", "heads_moved",
-                                       "model_bytes", "decode_ms")})
+                                       "model_bytes", "decode_ms", "heads",
+                                       "channels")})
     return out
 
 
@@ -593,17 +624,34 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+@contextlib.contextmanager
+def _timed(spent: Dict[str, float], part: str, dev: torch.device):
+    """Add the block's wall seconds, the device synchronised at both
+    ends, to ``spent[part]``."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _sync(dev)
+        spent[part] = spent.get(part, 0.0) + time.perf_counter() - t0
+
+
 def _heads_report(model, params) -> Dict:
     """The heads this rank computes in the first module of each kind
-    that splits them (``Model.computed_heads``), and the shapes of that
+    that splits them (``Model.computed_heads``), the mLSTM's value
+    channels (``Model.computed_channels``), and the shapes of that
     module's leaves as the rank holds them."""
     out = {}
+    chans = model.computed_channels()
     for name, (lo, hi) in model.computed_heads().items():
         kind = type(model.get_submodule(name)).__name__
         if kind not in out:
             out[kind] = dict(module=name, heads=[lo, hi], leaves={
                 n[len(name) + 1:]: list(p.shape) for n, p in params.items()
                 if n.startswith(name + ".")})
+            if name in chans:
+                out[kind]["channels"] = list(chans[name])
     return out
 
 
@@ -617,9 +665,10 @@ def _added(a: Dict, b: Dict) -> Dict:
 
 def _whole(leaves: Dict[str, torch.Tensor], layout, ax, dax=None,
            keep: bool = True) -> Dict:
-    """fp32 host copies of ``leaves`` (a model's parameters or gradients
-    by name: compared on the host, beside the models on the device; a
-    copy even of a host fp32 leaf, which the steps update in place), each
+    """fp32 host copies (:func:`_host_copy`) of ``leaves`` (a model's
+    parameters or gradients by name: kept on the host, beside the models
+    on the device, and compared a chunk at a time on the device; a copy
+    even of a host fp32 leaf, which the steps update in place), each
     gathered whole over "model" (``ax``) and "data" (``dax``) where
     ``layout`` holds it sliced.  Plain collectives: DTensor's functional
     ones crash under gloo on CUDA tensors (two ranks on one card).  A
@@ -629,7 +678,19 @@ def _whole(leaves: Dict[str, torch.Tensor], layout, ax, dax=None,
     for n, t in leaves.items():
         t = _gathered(t, layout[n], ax, dax)
         if keep:
-            out[n] = t.detach().to("cpu", torch.float32, copy=True)
+            out[n] = _host_copy(t)
+    return out
+
+
+def _host_copy(t: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """A host copy of ``t`` in ``dtype``, in page-locked memory where
+    ``t`` lies on a card: copies to and from it then run at the bus's
+    rate, where through pageable memory they ran at 0.6 GB/s in gloo
+    ranks sharing an H100 (``PERF.md`` §6, PR 27)."""
+    if t.device.type != "cuda":
+        return t.detach().to("cpu", dtype, copy=True)
+    out = torch.empty(t.shape, dtype=dtype, pin_memory=True)
+    out.copy_(t.detach().to(dtype))
     return out
 
 
@@ -668,7 +729,9 @@ def _first_step(one: Dict[str, torch.Tensor], params, layout, ax,
         if one is None:
             continue
         b, a = b.float().reshape(-1), one[n].reshape(-1)
-        err = d_sq = a_sq = 0.0
+        # |d - prediction| max, |d|², |a|², |a| max: summed on the device,
+        # read once a leaf
+        acc = torch.zeros(4, dtype=torch.float64, device=dev)
         for i in range(0, a.numel(), chunk):
             part = slice(i, i + chunk)
             u = []
@@ -679,10 +742,9 @@ def _first_step(one: Dict[str, torch.Tensor], params, layout, ax,
                 u.append(p)
             ai = a[part].to(dev)
             d = b[part] - ai
-            err = max(err, float((d - (u[1] - u[0])).abs().max()))
-            d_sq += float(torch.sum(torch.square(d)))
-            a_sq += float(torch.sum(torch.square(ai)))
-        err /= max(float(a.abs().max()), 1e-30)
+            _accumulate(acc, (d - (u[1] - u[0])).abs().max(), d, ai)
+        err, d_sq, a_sq, a_max = acc.tolist()
+        err /= max(a_max, 1e-30)
         if err > worst:
             worst, leaf = err, n
         gap = max(gap, math.sqrt(d_sq) / max(math.sqrt(a_sq), 1e-30))
@@ -701,19 +763,49 @@ FIGURES = ("loss_rel_err", "grad_rel_norm", "grad_err_over_max",
            "leaf_rel_norm", "leaf_err_over_max")
 
 
-def _figures(one, other) -> Dict[str, Dict[str, float]]:
+def _accumulate(acc: torch.Tensor, e_max: torch.Tensor, d: torch.Tensor,
+                a: torch.Tensor) -> None:
+    """Fold one chunk into ``acc`` (fp64, on the chunk's device): the
+    largest of ``e_max``, ``|d|²`` and ``|a|²`` summed, the largest
+    ``|a|``; no host sync."""
+    norm = torch.linalg.vector_norm
+    part = torch.stack([e_max.float(), norm(d), norm(a),
+                        a.abs().max()]).double()
+    acc[1:3] += part[1:3].square()
+    acc[0::3] = torch.maximum(acc[0::3], part[0::3])
+
+
+def _leaf_figures(a: torch.Tensor, b: torch.Tensor, dev=None,
+                  chunk: int = 1 << 24) -> Tuple[float, float]:
+    """``|b - a| / |a|`` in norm and ``max|b - a| / max|a|`` of two
+    tensors of one shape (on the host or a device), a chunk at a time on
+    ``dev`` (default: ``a``'s device), no chunk larger than ``chunk``
+    elements: no temporary of the whole leaf on the host."""
+    dev = a.device if dev is None else dev
+    a, b = a.reshape(-1), b.reshape(-1)
+    acc = torch.zeros(4, dtype=torch.float64, device=dev)
+    for i in range(0, a.numel(), chunk):
+        ai = a[i:i + chunk].to(dev, torch.float32)
+        d = b[i:i + chunk].to(dev, torch.float32) - ai
+        _accumulate(acc, d.abs().max(), d, ai)
+    e_max, d_sq, a_sq, a_max = acc.tolist()
+    return (math.sqrt(d_sq) / max(math.sqrt(a_sq), 1e-30),
+            e_max / max(a_max, 1e-30))
+
+
+def _figures(one, other, dev=None) -> Dict[str, Dict[str, float]]:
     """:data:`FIGURES` of a run ``other`` against ``one``, each ``(losses,
-    gradients, leaves)``; the loss's under the name ``loss``."""
+    gradients, leaves)``; the loss's under the name ``loss``.  Each leaf
+    pair is compared a chunk at a time on ``dev`` (default: where the
+    leaf lies; the host copies of :func:`sharded_step_parity` go to the
+    card)."""
     out = dict(loss_rel_err=dict(loss=max(
         abs(a - b) / abs(a) for a, b in zip(one[0], other[0]))))
     for kind, a, b in (("grad", one[1], other[1]),
                        ("leaf", one[2], other[2])):
-        out[f"{kind}_rel_norm"] = {n: float(
-            torch.linalg.vector_norm(a[n] - b[n]) /
-            max(float(torch.linalg.vector_norm(a[n])), 1e-30)) for n in a}
-        out[f"{kind}_err_over_max"] = {n: float(
-            (a[n] - b[n]).abs().max() / max(float(a[n].abs().max()), 1e-30))
-            for n in a}
+        each = {n: _leaf_figures(a[n], b[n], dev) for n in a}
+        out[f"{kind}_rel_norm"] = {n: v[0] for n, v in each.items()}
+        out[f"{kind}_err_over_max"] = {n: v[1] for n, v in each.items()}
     return out
 
 

@@ -26,8 +26,10 @@ whole and sliced, so the draws are the world of one's.  Every block then
 computes on its shards, Megatron's way: each rank computes the heads
 :func:`heads_split` gives it (an uneven split: ``⌊h/m⌋`` or ``⌈h/m⌉``,
 none where ``h < m``) — the attention's query heads and the K/V heads
-they read, Mamba-2's SSD heads, the mLSTM's and sLSTM's heads — and the
-hidden units of its slice of the MLP; the products into them are
+they read, Mamba-2's SSD heads, the sLSTM's heads; the mLSTM's heads,
+or where they are fewer than the ranks one head's share of value
+channels (:func:`value_split`) — and the hidden units of its slice of
+the MLP; the products into them are
 column-parallel behind one :func:`sharding.copy_to_model`, those out of
 them (``wo``, ``out_proj``, ``down``, ``out``, ``w2``) row-parallel with
 one :func:`sharding.reduce_from_model` after each.  The experts run
@@ -78,6 +80,35 @@ def heads_split(n: int, m: int, rank: int) -> Tuple[int, int]:
     return n * rank // m, n * (rank + 1) // m
 
 
+def value_split(h: int, hd: int, m: int,
+                rank: int) -> Tuple[int, int, int, int]:
+    """The mLSTM's part that rank ``rank`` of a "model" group of ``m``
+    computes: the heads ``[head_lo, head_hi)`` and, of each, the value
+    channels ``[ch_lo, ch_hi)`` of ``hd``.  Where ``h ≥ m``,
+    :func:`heads_split`'s heads and every channel.  Where ``h < m``
+    every rank computes one head, ``j = ⌊rank·h/m⌋``, which the ranks
+    ``[⌈j·m/h⌉, ⌈(j+1)·m/h⌉)`` share; the i-th of those ``g`` ranks
+    computes the channels ``heads_split(hd, g, i)``.  Groups differ in
+    size where ``h`` does not divide ``m`` (2 heads over 3 ranks: groups
+    of 2 and 1).
+
+    ``C = f·C + i·v kᵀ`` and ``y = C q / max(|n·q|, 1)`` are independent
+    per value channel, so a rank needs its head's q, k, gates and
+    normalizer whole and its own channels of v, z and ``down``'s rows,
+    and no collective inside the recurrence.  At xlstm's 4 heads of 512
+    over 16 ranks rank r computes head ⌊r/4⌋, channels
+    ``[(r%4)·128, +128)``: the columns ``[r·128, +128)`` of ``wv [dp,
+    dp]`` and the same rows of ``down [dp, d]``, which is the slice of
+    dp / 16 = 128 that each one's spec stores on rank r, so neither is
+    exchanged."""
+    if h >= m:
+        return (*heads_split(h, m, rank), 0, hd)
+    j = rank * h // m
+    first = -(-j * m // h)
+    g = -(-(j + 1) * m // h) - first
+    return (j, j + 1, *heads_split(hd, g, rank - first))
+
+
 def _build_heads(n: int) -> Tuple[int, int]:
     """:func:`heads_split` of the model being built."""
     return heads_split(n, sharding.build_size(), sharding.build_rank())
@@ -86,11 +117,30 @@ def _build_heads(n: int) -> Tuple[int, int]:
 Pieces = List[Tuple[int, int]]
 
 
+def _head_rows(n: int, unit: int) -> Pieces:
+    """Every rank's :func:`heads_split` of ``n`` heads of ``unit``
+    elements, in rank order, in the model being built: a row leaf's
+    ``rows`` (:meth:`_Heads._leaf`)."""
+    m = sharding.build_size()
+    return [_spans(*heads_split(n, m, j), unit)[0] for j in range(m)]
+
+
 def _spans(lo: int, hi: int, width: int, *starts: int) -> Pieces:
     """Heads ``[lo, hi)`` of ``width`` elements each, at each of
     ``starts`` (default 0): ``[(start + lo·width, (hi - lo)·width),
     ...]``."""
     return [(s + lo * width, (hi - lo) * width) for s in starts or (0,)]
+
+
+def _value_spans(split: Tuple[int, int, int, int], hd: int,
+                 *starts: int) -> Pieces:
+    """The value channels of :func:`value_split`'s ``split`` (heads of
+    ``hd``) at each of ``starts``: its heads whole where it has every
+    channel, else its one head's channels."""
+    lo, hi, clo, chi = split
+    if (clo, chi) == (0, hd):
+        return _spans(lo, hi, hd, *starts)
+    return [(s + lo * hd + clo, chi - clo) for s in starts or (0,)]
 
 
 def _stored_as_used(shape, spec: Optional[P], dim: int,
@@ -126,7 +176,8 @@ def heads_form_bytes(rows: int, d_in: int, width: int, m: int,
     * ``"weights"``: the rank's slice gathered (``d_in·width/m``);
     * ``"activations"``: the rank's ``share`` of each row gathered
       (``rows·share``; a column leaf's product columns, ``width/m`` by
-      default; a row leaf's head outputs, padded to ``⌈h/m⌉`` heads).
+      default; a row leaf's head outputs, padded to the largest rank's:
+      ``⌈h/m⌉`` heads, or the mLSTM's widest channel part).
 
     The forward alone decides: under autograd each form's backward
     reduce-scatters ``m`` times its forward's operand (the leaf's
@@ -171,20 +222,21 @@ class _Heads(nn.Module):
         super().__init__()
         # name -> (the dimension it is gathered along, or None where it
         # is stored whole; the dimension it is cut along; the pieces;
-        # a row leaf's head width, or None)
+        # a row leaf's every rank's piece, or None)
         self.cuts: Dict[str, tuple] = {}
         self.form: Optional[str] = None
 
     def _leaf(self, name: str, t: torch.Tensor, spec: P, dim: int = 0,
               pieces: Optional[Pieces] = None,
-              unit: Optional[int] = None) -> None:
+              rows: Optional[Pieces] = None) -> None:
         """Keep the whole leaf ``t`` as the rank stores it; at use it is
         ``pieces`` along ``dim`` (``None``: whole on every rank, as a
-        norm's weight); ``unit``: the width along ``dim`` of one head, of
-        a row leaf the rank's heads read row-parallel."""
+        norm's weight); ``rows``: of a row leaf the rank's heads read
+        row-parallel, every rank's one piece along ``dim``, in rank
+        order, which together are the whole dimension in order."""
         if pieces is not None and not _stored_as_used(t.shape, spec, dim,
                                                       pieces):
-            self.cuts[name] = (model_dim(spec), dim, pieces, unit)
+            self.cuts[name] = (model_dim(spec), dim, pieces, rows)
         setattr(self, name, _param(t, spec))
 
     @property
@@ -220,8 +272,8 @@ class _Heads(nn.Module):
         * ``"activations"``, a column leaf: ``x`` times the stored
           slice, the product's columns gathered (their gradients
           reduce-scattered back) and cut to the rank's pieces; a row
-          leaf: every rank's head outputs ``x`` (padded to ``⌈h/m⌉``
-          heads, for an equal-size gather) gathered into the whole
+          leaf: every rank's head outputs ``x`` (padded to the largest
+          rank's, for an equal-size gather) gathered into the whole
           ``[..., W]``, and its stored rows' columns times the stored
           slice (stored on its output columns, as the sLSTM's ``out``:
           the whole times the slice, placed at the slice's columns among
@@ -231,16 +283,16 @@ class _Heads(nn.Module):
         cut = self.cuts.get(name)
         if cut is None or cut[0] is None or sharding.model_size() == 1:
             return x @ self.part(name)
-        gdim, dim, pieces, unit = cut
+        gdim, dim, pieces, rows = cut
         w = getattr(self, name)
         m = sharding.model_size()
         column = gdim == dim == w.ndim - 1
-        row = dim == 0 and unit is not None
+        row = dim == 0 and rows is not None
         if not (column or row):
             return x @ self.part(name)
         whole = list(w.shape)
         whole[gdim] *= m
-        share = -(-whole[0] // unit // m) * unit if row else None
+        share = max(n for _, n in rows) if row else None
         args = (math.prod(x.shape[:-1]), *whole, m, x.element_size(),
                 w.element_size(), share)
         form = self.form or heads_form(*args)
@@ -255,9 +307,7 @@ class _Heads(nn.Module):
         if x.shape[-1] < share:
             x = F.pad(x, (0, share - x.shape[-1]))
         o = sharding.gather_from_model(x, -1, partial_grad=True)
-        spans = [heads_split(whole[0] // unit, m, j) for j in range(m)]
-        o = _cut(o, -1, [(j * share, (hi - lo) * unit)
-                         for j, (lo, hi) in enumerate(spans)])
+        o = _cut(o, -1, [(j * share, n) for j, (_, n) in enumerate(rows)])
         r, n = sharding.model_rank(), w.shape[gdim]
         if gdim == 0:                   # its stored rows
             return o.narrow(-1, r * n, n) @ w
@@ -352,7 +402,7 @@ class _AttnParams(_Heads):
             self._leaf(n, _init_dense(gen, d, kv * hd, dt), sp[n], 1,
                        _spans(*self.kv, hd))
         self._leaf("wo", _init_dense(gen, h * hd, d, dt), sp["wo"], 0,
-                   _spans(lo, hi, hd), hd)
+                   _spans(lo, hi, hd), _head_rows(h, hd))
         self.tp = sharding.build_size() > 1
 
     def kv_heads(self) -> int:
@@ -773,7 +823,7 @@ class Mamba2Block(_Heads):
             self._leaf(name, torch.full((nh,), fill, **f32), sp[name], 0,
                        _spans(lo, hi, 1))
         self._leaf("out_proj", _init_dense(gen, d_in, d, dt), sp["out_proj"],
-                   0, _spans(lo, hi, hdim), hdim)
+                   0, _spans(lo, hi, hdim), _head_rows(nh, hdim))
 
     def param_specs(self) -> Dict[str, P]:
         d_in, _, nh, n, _ = _mamba_dims(self.cfg)
@@ -867,10 +917,17 @@ class MlstmBlock(_Heads):
     ``down``, with a residual.  ``ln [d]``, ``up [d, 2·dp]``, ``wq`` /
     ``wk`` / ``wv [dp, dp]``, ``wif [dp, 2·H]``, ``down [dp, d]``.
 
-    A rank computes its heads ``heads = [lo, hi)`` of :func:`heads_split`:
-    x whole (``up``'s first half), its heads' ``z`` channels, q / k / v
-    columns and i / f gates, the mLSTM on them, and ``down`` row-parallel
-    on its heads' rows."""
+    A rank computes the heads ``heads = [lo, hi)`` and their value
+    channels ``channels = [ch_lo, ch_hi)`` of :func:`value_split` (every
+    channel where the heads split over the ranks; where there are fewer
+    heads than ranks, the ranks that share a head split its channels):
+    x whole (``up``'s first half), its heads' q / k columns and i / f
+    gates whole, the v and z columns of its channels, the mLSTM on them
+    (the normalizer per head, the same on every rank of a head), and
+    ``down`` row-parallel on its channels' rows.  The gradients of q, k,
+    the gates and x are then partial on each rank of a head, and the
+    reduce-scatter of a gathered leaf, the all-reduce of ``wif``'s and
+    of :func:`sharding.copy_to_model` sum them."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator):
         super().__init__()
@@ -880,18 +937,25 @@ class MlstmBlock(_Heads):
         dt = dtype_of(cfg.param_dtype)
         gen = generator
         sp = self.param_specs()
-        lo, hi = self.heads = _build_heads(h)
-        self.tp = sharding.build_size() > 1
+        m = sharding.build_size()
+        split = value_split(h, hd, m, sharding.build_rank())
+        lo, hi = self.heads = split[:2]
+        self.channels = split[2:]
+        self.tp = m > 1
         self.ln = _ones(cfg, gen)
         self._leaf("up", _init_dense(gen, d, 2 * dp, dt), sp["up"], 1,
-                   [(0, dp)] + _spans(lo, hi, hd, dp))
-        for n in ("wq", "wk", "wv"):
+                   [(0, dp)] + _value_spans(split, hd, dp))
+        for n in ("wq", "wk"):
             self._leaf(n, _init_dense(gen, dp, dp, dt), sp[n], 1,
                        _spans(lo, hi, hd))
+        self._leaf("wv", _init_dense(gen, dp, dp, dt), sp["wv"], 1,
+                   _value_spans(split, hd))
         self._leaf("wif", _init_dense(gen, dp, 2 * h, dt), sp["wif"], 1,
                    _spans(lo, hi, 1, 0, h))
         self._leaf("down", _init_dense(gen, dp, d, dt), sp["down"], 0,
-                   _spans(lo, hi, hd), hd)
+                   _value_spans(split, hd),
+                   [_value_spans(value_split(h, hd, m, j), hd)[0]
+                    for j in range(m)])
 
     def param_specs(self) -> Dict[str, P]:
         dp, _, _ = _mlstm_dims(self.cfg)
@@ -899,30 +963,29 @@ class MlstmBlock(_Heads):
                     wk=P(None, mdl(dp)), wv=P(None, mdl(dp)),
                     wif=P(None, None), down=P(mdl(dp), None))
 
-    def _qkv_gates(self, x, shape):
-        """q / k / v of ``shape`` (the rank's heads), the i / f gates and
-        z of the rank's heads, from ``x``."""
-        dp, _, _ = _mlstm_dims(self.cfg)
+    def _qkv_gates(self, x, lead):
+        """q / k [*lead, nl, hd] of the rank's heads, v [*lead, nl, P] of
+        their channels, the i / f gates of its heads and z of its
+        channels, from ``x``."""
+        dp, _, hd = _mlstm_dims(self.cfg)
         nl = self.heads[1] - self.heads[0]
         up = self.product("up", _column(rms_norm(x, self.ln), self.tp))
         xm, z = up[..., :dp], up[..., dp:]
-        q, k, v = (self.product(n, xm).reshape(shape)
-                   for n in ("wq", "wk", "wv"))
+        q, k = (self.product(n, xm).reshape(*lead, nl, hd)
+                for n in ("wq", "wk"))
+        v = self.product("wv", xm).reshape(*lead, nl, -1)
         gates = xm @ self.part("wif")
         return q, k, v, gates[..., :nl], gates[..., nl:], z
 
     def _out(self, x, y):
-        """``y`` [..., nl·hd] (gated) through the rank's rows of ``down``,
+        """``y`` [..., nl·P] (gated) through the rank's rows of ``down``,
         summed over "model", added to ``x``."""
         return x + _row(self.product("down", y), self.tp)
 
     def head_outputs(self, x: torch.Tensor) -> torch.Tensor:
-        """The mLSTM's output on the rank's heads, gated by SiLU(z),
-        [B,S,nl·hd] (before ``down``)."""
-        b, s, _ = x.shape
-        _, _, hd = _mlstm_dims(self.cfg)
-        nl = self.heads[1] - self.heads[0]
-        q, k, v, ig, fg, z = self._qkv_gates(x, (b, s, nl, hd))
+        """The mLSTM's output on the rank's heads and channels, gated by
+        SiLU(z), [B,S,nl·P] (before ``down``)."""
+        q, k, v, ig, fg, z = self._qkv_gates(x, x.shape[:2])
         y, _ = ssm_lib.mlstm_chunked(q, k, v, ig, fg, self.cfg.ssm_chunk)
         return y.to(x.dtype).flatten(-2) * F.silu(z)
 
@@ -933,13 +996,14 @@ class MlstmBlock(_Heads):
         return self._out(x, self.head_outputs(x)), _no_aux(x)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
-        """``c [B·nl,1,hd,hd]`` and ``n [B·nl,1,1,hd]`` of the rank's
-        heads, zero, in the compute dtype; :meth:`decode` replaces them
-        with fp32 tensors."""
+        """``c [B·nl,1,P,hd]`` and ``n [B·nl,1,1,hd]`` of the rank's
+        heads and channels, zero, in the compute dtype; :meth:`decode`
+        replaces them with fp32 tensors."""
         _, _, hd = _mlstm_dims(self.cfg)
         c, n = ssm_lib.mlstm_init_state(
             batch, self.heads[1] - self.heads[0], hd,
-            dtype_of(self.cfg.compute_dtype), self.ln.device)
+            dtype_of(self.cfg.compute_dtype), self.ln.device,
+            values=self.channels[1] - self.channels[0])
         return dict(c=c, n=n)
 
     def decode(self, cache: Dict[str, torch.Tensor], x_t: torch.Tensor,
@@ -947,10 +1011,7 @@ class MlstmBlock(_Heads):
         """x_t: [B,1,d].  The state comes back in fp32 from the first step
         on (the reference's ``mlstm_decode_step`` promotes it), so the
         cache's ``c`` / ``n`` are replaced, not written into."""
-        b = x_t.shape[0]
-        _, _, hd = _mlstm_dims(self.cfg)
-        nl = self.heads[1] - self.heads[0]
-        q, k, v, ig, fg, z = self._qkv_gates(x_t[:, 0], (b, nl, hd))
+        q, k, v, ig, fg, z = self._qkv_gates(x_t[:, 0], x_t.shape[:1])
         y, (c2, n2) = ssm_lib.mlstm_decode_step((cache["c"], cache["n"]),
                                                 q, k, v, ig, fg)
         cache["c"], cache["n"] = c2, n2
@@ -992,7 +1053,7 @@ class SlstmBlock(_Heads):
         self._leaf("r", _draw(gen, (4, h, hd, hd), 0.3 / math.sqrt(hd), dt),
                    sp["r"], 1, _spans(lo, hi, 1))
         self._leaf("out", _init_dense(gen, d, d, dt), sp["out"], 0,
-                   _spans(lo, hi, hd), hd)
+                   _spans(lo, hi, hd), _head_rows(h, hd))
 
     def param_specs(self) -> Dict[str, P]:
         d = self.cfg.d_model

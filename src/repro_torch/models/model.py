@@ -35,6 +35,7 @@ Public surface::
     layout = m.layout()           # {parameter name: Leaf}: what is sharded
                                   # and what is not the rank's part
     heads = m.computed_heads()    # {module name: (lo, hi)}: this rank's
+    chans = m.computed_channels() # {mLSTM module: (ch_lo, ch_hi)}
 
 A vision-language model (``cfg.frontend == "vision"``, qwen2-vl) takes
 the frontend's output ``frontend`` [B,nf,d] (the vision tower's stub:
@@ -461,10 +462,19 @@ class Model(nn.Module):
 
     def computed_heads(self) -> Dict[str, Tuple[int, int]]:
         """The heads ``[lo, hi)`` this rank computes in each module that
-        splits heads over "model", by module name (``blocks.heads_split``;
-        a shared block once)."""
+        splits heads over "model", by module name (``blocks.heads_split``,
+        the mLSTM's ``blocks.value_split``; a shared block once)."""
         return {n: mod.heads for n, mod in self.named_modules()
                 if isinstance(getattr(mod, "heads", None), tuple)}
+
+    def computed_channels(self) -> Dict[str, Tuple[int, int]]:
+        """The value channels ``[ch_lo, ch_hi)`` of each of its heads
+        this rank computes in each mLSTM block, by module name
+        (``blocks.value_split``: every channel where the heads split over
+        "model", the rank's share of its one head's where they are
+        fewer)."""
+        return {n: mod.channels for n, mod in self.named_modules()
+                if isinstance(getattr(mod, "channels", None), tuple)}
 
     def whole_shapes(self) -> Dict[str, Tuple[int, ...]]:
         """Every parameter's shape in the world of one, by name: the

@@ -29,7 +29,9 @@ rows go over every mesh dimension (:func:`row_axis_names`).
 tp=(rank, m))`` holds only its shard of each leaf whose spec names
 "model" (:func:`keep_shard`, under :func:`build_shards`), and computes on
 the rank's share of every block's heads (``blocks.heads_split``, an
-uneven split where GSPMD pads: attention, Mamba-2, the mLSTM and sLSTM)
+uneven split where GSPMD pads: attention, Mamba-2, the mLSTM and sLSTM;
+the mLSTM's ranks that share a head split its value channels,
+``blocks.value_split``)
 and of the MLP's hidden units: column-parallel products into them, each
 row-parallel product out of them followed by one
 :func:`reduce_from_model`, experts parallel over "model", the vocabulary

@@ -113,14 +113,20 @@ def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> Tuple[torch.Tensor, Tuple]:
     """Matrix-LSTM in chunkwise-parallel form (xLSTM).
 
-    q/k/v: [B,S,H,hd]; i_gate/f_gate: [B,S,H] (pre-activations).
+    q/k: [B,S,H,N]; v: [B,S,H,P]; i_gate/f_gate: [B,S,H]
+    (pre-activations).
     C_t = f C_{t-1} + i v k^T ; n_t = f n_{t-1} + i k ;
     y = (C q) / max(|n.q|, 1).
     Maps onto SSD with a = log sigmoid(f), x = i*v, b = k, c = q;
-    the normalizer runs the same recurrence with x = i*1.  Returns y in
-    fp32 and the final (C, n) in ``v.dtype``.
+    the normalizer runs the same recurrence with x = i*1.  Each value
+    channel is its own row of ``C``, so ``v`` may hold any ``P`` of a
+    head's channels (``P = N``: all of them, the reference's call): ``y``
+    is then those channels of the whole run's, the scale ``1/√N`` either
+    way.  Returns y [B,S,H,P] in fp32 and the final (C [B·H,1,P,N],
+    n [B·H,1,1,N]) in ``v.dtype``.
     """
-    B, S, H, hd = q.shape
+    B, S, H, N = q.shape
+    P = v.shape[-1]
     logf = F.logsigmoid(f_gate.float())                   # [B,S,H]
     i_act = torch.exp(torch.clamp(i_gate.float(), max=10.0))
 
@@ -129,8 +135,8 @@ def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     xq = fold(v * i_act[..., None].to(v.dtype))
     a = logf.permute(0, 2, 1).reshape(B * H, S, 1)
-    bmat = fold(k.float() * _scale(hd)).reshape(B * H, S, hd)
-    cmat = fold(q).reshape(B * H, S, hd)
+    bmat = fold(k.float() * _scale(N)).reshape(B * H, S, N)
+    cmat = fold(q).reshape(B * H, S, N)
     h0 = None if state is None else state[0]
     y, hT = ssd_chunked(xq, a, bmat, cmat, chunk, h0)
     # normalizer n_t . q_t via the same recurrence with x = i (P=1)
@@ -138,37 +144,42 @@ def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n0 = None if state is None else state[1]
     nrm, nT = ssd_chunked(ones, a, bmat, cmat, chunk, n0)
     denom = torch.clamp(nrm[..., 0].abs(), min=1.0)       # [B*H,S,1]
-    y = y[:, :, 0] / denom                                # [B*H,S,hd]
-    y = y.reshape(B, H, S, hd).permute(0, 2, 1, 3)
+    y = y[:, :, 0] / denom                                # [B*H,S,P]
+    y = y.reshape(B, H, S, P).permute(0, 2, 1, 3)
     return y, (hT, nT)
 
 
 def mlstm_init_state(batch: int, n_heads: int, hd: int, dtype,
-                     device=None):
-    return (torch.zeros((batch * n_heads, 1, hd, hd), dtype=dtype,
+                     device=None, values: Optional[int] = None):
+    """The zero state ``(C [B·H,1,P,hd], n [B·H,1,1,hd])`` of ``P =
+    values`` value channels a head (default ``hd``: all of them)."""
+    p = hd if values is None else values
+    return (torch.zeros((batch * n_heads, 1, p, hd), dtype=dtype,
                         device=device),
             torch.zeros((batch * n_heads, 1, 1, hd), dtype=dtype,
                         device=device))
 
 
 def mlstm_decode_step(state, q_t, k_t, v_t, i_t, f_t):
-    """One-token mLSTM.  q/k/v: [B,H,hd], gates [B,H].
-    state = (C [B*H,1,hd,hd], n [B*H,1,1,hd]) as from mlstm_init_state.
+    """One-token mLSTM.  q/k: [B,H,N], v: [B,H,P] (any ``P`` of a head's
+    value channels, as in :func:`mlstm_chunked`), gates [B,H].
+    state = (C [B*H,1,P,N], n [B*H,1,1,N]) as from mlstm_init_state.
     The new state is fp32 whatever the dtype of ``state`` (the decay is
     fp32), as in the reference."""
-    B, H, hd = q_t.shape
+    B, H, N = q_t.shape
+    P = v_t.shape[-1]
     C, n = state
     logf = F.logsigmoid(f_t.float()).reshape(B * H, 1)
     i_act = torch.exp(torch.clamp(i_t.float(), max=10.0)).reshape(B * H)
-    kf = (k_t.float() * _scale(hd)).reshape(B * H, hd).to(C.dtype)
-    qf = q_t.reshape(B * H, hd).to(C.dtype)
-    vf = (v_t.reshape(B * H, hd).float() * i_act[:, None]).to(C.dtype)
+    kf = (k_t.float() * _scale(N)).reshape(B * H, N).to(C.dtype)
+    qf = q_t.reshape(B * H, N).to(C.dtype)
+    vf = (v_t.reshape(B * H, P).float() * i_act[:, None]).to(C.dtype)
     # SSD layout: h [B',1,P,N] with the fused B*H batch and one "head"
-    y, C2 = ssd_decode_step(C, vf[:, None, :], logf, kf, qf)  # [B',1,hd]
+    y, C2 = ssd_decode_step(C, vf[:, None, :], logf, kf, qf)  # [B',1,P]
     ones = i_act[:, None, None].to(C.dtype)                   # x=i, P=1
     nrm, n2 = ssd_decode_step(n, ones, logf, kf, qf)          # [B',1,1]
     denom = torch.clamp(nrm.abs(), min=1.0)
-    y = (y / denom).reshape(B, H, hd)
+    y = (y / denom).reshape(B, H, P)
     return y, (C2, n2)
 
 

@@ -157,6 +157,13 @@ REFERENCE_ZAMBA2_DECODE = 1.06e7
 #: the leaves that keep the weights form at decode: the sLSTM's ``r``
 #: (stored on ``hd``, cut on heads), 12 layers
 SLSTM_LEAVES = {"xlstm-350m": 12}
+#: the bytes of the slice of one ``r`` a rank gathers: ``[4, H, hd,
+#: hd/16]`` in bf16 (4 heads of 256)
+SLSTM_R_SLICE = {"xlstm-350m": 4 * 4 * 256 * (256 // 16) * 2}
+#: xlstm ``long_500k``'s bound, the larger of its t_memory and
+#: t_collective, before the mLSTM's value split cut its cache a quarter
+#: (the records of ``blocks.heads_form``'s products, both meshes)
+XLSTM_LONG_BOUND_BEFORE = 4.377973582089552e-05
 
 
 def test_decode_records_exchange_the_products():
@@ -166,7 +173,10 @@ def test_decode_records_exchange_the_products():
     record that gathered a leaf before gathers fewer
     bytes; zamba2's cells move at most the reference's "model" bytes,
     and they, xlstm's and arctic's ``decode_32k`` on 2x16x16 are
-    memory-bound."""
+    memory-bound.  xlstm's ``long_500k`` (one row), whose mLSTM cache the
+    value split cut to a quarter, is collective-bound by the sLSTM's
+    ``r`` gathers alone: memory-bound without them, and its bound below
+    its bound before the split."""
     for key, r in _records().items():
         arch, shape, mesh = key
         if r.get("status") != "ok" or r["kind"] not in ("decode",
@@ -180,7 +190,13 @@ def test_decode_records_exchange_the_products():
             assert r["coll_all-gather"] < LEAF_FORM_GATHERS[key], key
         if arch == "zamba2-2.7b":
             assert r["coll_by_axis"]["model"] <= REFERENCE_ZAMBA2_DECODE
-        if arch in ("zamba2-2.7b", "xlstm-350m") or key == (
+        if key[:2] == ("xlstm-350m", "long_500k"):
+            t_r = r["t_collective_s"] * kept * SLSTM_R_SLICE[arch] / \
+                r["coll_by_axis"]["model"]
+            assert r["t_collective_s"] - t_r < r["t_memory_s"], key
+            assert max(r["t_collective_s"], r["t_memory_s"]) < \
+                XLSTM_LONG_BOUND_BEFORE, key
+        elif arch in ("zamba2-2.7b", "xlstm-350m") or key == (
                 "arctic-480b", "decode_32k", "2x16x16"):
             assert r["bottleneck"] == "memory", key
 

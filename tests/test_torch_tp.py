@@ -254,15 +254,16 @@ def test_shard_of_a_width_that_does_not_split_raises():
 #: them), all four attention leaves where the query heads split unevenly
 #: (56, 28 and 36 of them), ``in_proj`` of Mamba-2 (its packed
 #: ``[z | x | B C | dt]``), every leaf of the xLSTM's blocks but the
-#: norm and the gates (4 heads of 512 / 256 over 16 ranks); seamless's 16
+#: norm and the gates (4 heads of 512 / 256 over 16 ranks), except the
+#: mLSTM's ``wv`` and ``down``, whose stored slices are the value
+#: channels the rank computes (``blocks.value_split``); seamless's 16
 #: query and K/V heads split whole
 ALL_AT_16 = {"wq", "wk", "wv", "wo"}
 USE_AT_16 = {"arctic-480b": ALL_AT_16, "command-r-35b": {"wk", "wv"},
              "gemma3-12b": {"wk", "wv"}, "kimi-k2-1t-a32b": {"wk", "wv"},
              "mistral-nemo-12b": {"wk", "wv"}, "qwen2-vl-7b": ALL_AT_16,
              "seamless-m4t-large-v2": set(), "starcoder2-7b": ALL_AT_16,
-             "xlstm-350m": {"up", "wq", "wk", "wv", "down", "wx", "r",
-                            "out"},
+             "xlstm-350m": {"up", "wq", "wk", "wx", "r", "out"},
              "zamba2-2.7b": {"in_proj"}}
 
 
@@ -272,7 +273,10 @@ def test_layout_at_the_production_degree(arch):
     built on ``meta``: the one rule of what is gathered at use, pinned;
     no leaf is held whole where its spec names "model", so each rank's
     parameters are the specs' share; every block computes at most
-    ``⌈h/16⌉`` of its ``h`` heads, the last rank exactly that many."""
+    ``⌈h/16⌉`` of its ``h`` heads, the last rank exactly that many: the
+    heads of ``blocks.heads_split``, and in an mLSTM block the heads and
+    value channels of ``blocks.value_split`` (xlstm: head ⌊r/4⌋,
+    channels ``[(r%4)·128, +128)``, so rank 0 computes head 0 too)."""
     cfg = get_config(arch)
     whole = dict(Model(cfg, device="meta").named_parameters())
     for rank in (0, 15):
@@ -288,11 +292,21 @@ def test_layout_at_the_production_degree(arch):
                 assert leaf.data_dim is not None and leaf.shard_dim == 0, n
             if n in ("embed", "unembed"):
                 assert leaf.shard_dim is not None and leaf.gather is None, n
+        chans = m.computed_channels()
         for name, (lo, hi) in m.computed_heads().items():
             mod = m.get_submodule(name)
             h = blocks._mamba_dims(cfg)[2] if isinstance(
                 mod, blocks.Mamba2Block) else cfg.n_heads
-            assert (lo, hi) == blocks.heads_split(h, 16, rank), name
+            if isinstance(mod, blocks.MlstmBlock):
+                hd = blocks._mlstm_dims(cfg)[2]
+                assert (lo, hi, *chans[name]) == blocks.value_split(
+                    h, hd, 16, rank), name
+                if h < 16:
+                    assert (lo, *chans[name]) == (
+                        rank // 4, rank % 4 * 128, rank % 4 * 128 + 128)
+            else:
+                assert name not in chans, name
+                assert (lo, hi) == blocks.heads_split(h, 16, rank), name
             assert hi - lo <= math.ceil(h / 16), name
             if rank == 15:
                 assert hi - lo == math.ceil(h / 16), name

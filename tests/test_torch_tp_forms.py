@@ -28,8 +28,8 @@ from test_torch_tp_heads import check_block_heads
 from test_torch_tp_recurrent import BOUNDS, FLOOR_K, ZAMBA2_SHARDED_IN_PROJ
 
 #: (kind, arch, m, config changes, the leaves whose exchange has two
-#: forms there): each kind on (1, 2), (1, 4), and where some rank
-#: computes no head (2 heads over 4 ranks)
+#: forms there): each kind on (1, 2), (1, 4), and 2 heads over 4 ranks,
+#: where some rank computes no head (the mLSTM's ranks share a head)
 BLOCK_CASES = [
     # 10 query heads over 5 K/V heads: 5 a rank reading 3 K/V heads
     # where the stored slice is 2.5; then 2, 3, 2, 3 a rank
@@ -47,8 +47,10 @@ BLOCK_CASES = [
      {"in_proj", "out_proj"}),
     ("mlstm", "xlstm-350m", 2, {}, {"up"}),
     ("mlstm", "xlstm-350m", 4, {}, {"up"}),
-    ("mlstm", "xlstm-350m", 4, dict(n_heads=2),
-     {"up", "wq", "wk", "wv", "down"}),
+    # 2 heads over 4 ranks: two ranks a head, half its value channels
+    # each (``blocks.value_split``), which are the stored slices of
+    # ``wv`` and ``down``
+    ("mlstm", "xlstm-350m", 4, dict(n_heads=2), {"up", "wq", "wk"}),
     ("slstm", "xlstm-350m", 2, {}, {"wx", "out"}),
     ("slstm", "xlstm-350m", 4, {}, {"wx", "out"}),
     ("slstm", "xlstm-350m", 4, dict(n_heads=2), {"wx", "out"}),

@@ -21,7 +21,7 @@ from repro.models import blocks as ref_blocks
 from repro.models.layers import rms_norm as ref_rms_norm
 from repro_torch.configs import smoke_config
 from repro_torch.distributed import selftest
-from repro_torch.models.blocks import heads_split
+from repro_torch.models.blocks import _mlstm_dims, heads_split, value_split
 from test_torch_tp import F32, _assert_parity, _cfg, _spawn
 
 #: blocks in fp32: ``tests/test_torch_ssm.py``'s tolerance
@@ -69,7 +69,8 @@ def check_block_heads(tmp_path, kind, arch, m, form=None, **kw):
     weights (``build_<kind>``; its norms and Mamba-2's per-head scalars
     drawn anew, so that none is trivial) on the same numpy inputs, in
     fp32 at ``TOL``: each rank computes the heads of
-    :func:`heads_split`; their per-head outputs, concatenated over the
+    :func:`heads_split` (an mLSTM: the heads and value channels of
+    :func:`value_split`); their per-head outputs, concatenated over the
     ranks in order, are the reference's (attention: its output before
     ``wo``; a recurrent block: through the whole out-projection, with the
     residual, its block's output); every rank's block output (the
@@ -115,8 +116,12 @@ def check_block_heads(tmp_path, kind, arch, m, form=None, **kw):
                                                jx[:, t:t + 1], jnp.int32(t))
         ref_steps.append(np.asarray(y))
     for r, o in enumerate(outs):
-        assert set(map(tuple, o["heads"].values())) == {
-            heads_split(h, m, r)}, o["heads"]
+        if kind == "mlstm":
+            got = (*o["heads"]["mlstm"], *o["channels"])
+            assert got == value_split(h, _mlstm_dims(cfg)[2], m, r), got
+        else:
+            assert set(map(tuple, o["heads"].values())) == {
+                heads_split(h, m, r)}, o["heads"]
         np.testing.assert_allclose(o["out"], np.asarray(ref), atol=TOL,
                                    rtol=TOL)
         assert len(o["decode"]) == DECODE_STEPS

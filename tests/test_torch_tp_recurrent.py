@@ -1,5 +1,7 @@
 """The recurrent blocks split by heads over "model" (``blocks.heads_split``;
-Mamba-2's SSD heads, the mLSTM's and sLSTM's heads), on the CPU: the
+Mamba-2's SSD heads, the sLSTM's heads; the mLSTM's heads and, where
+they are fewer than the ranks, their value channels,
+``blocks.value_split``), on the CPU: the
 sharded train step of zamba2 and xlstm smoke against the world of one,
 and each recurrent block's per-head outputs, concatenated over the
 ranks, against the JAX package's block on the same numpy inputs
@@ -33,7 +35,8 @@ import pytest
 import torch
 
 from repro_torch.distributed import selftest
-from repro_torch.models.blocks import _mamba_dims, heads_split
+from repro_torch.models.blocks import (_mamba_dims, _mlstm_dims,
+                                       heads_split, value_split)
 from repro_torch.models.model import Leaf
 from repro_torch.models.sharding import P
 from test_torch_tp import (FIRST_STEP_MAX, GRAD_MAX_RTOL, LEAF_MAX_RTOL,
@@ -58,21 +61,27 @@ def _heads(cfg, kind):
 
 
 def _assert_shards(outs, cfg, m):
-    """Every rank holds the specs' share and computes its heads; every
-    rank but rank 0 compared its copies of the leaves held alike."""
+    """Every rank holds the specs' share and computes its heads (an
+    mLSTM's heads and value channels); every rank but rank 0 compared its
+    copies of the leaves held alike."""
     for r, o in enumerate(outs):
         assert o["param_bytes"] == o["spec_param_bytes"], o
         assert o["not_the_share"] == [], o
         assert o["replica_checks"] > 0 or r == 0, o["replica_checks"]
         for kind, got in o["heads"].items():
-            assert got["heads"] == list(heads_split(
-                _heads(cfg, kind), m, r % m)), (kind, got)
+            if kind == "MlstmBlock":
+                assert got["heads"] + got["channels"] == list(value_split(
+                    cfg.n_heads, _mlstm_dims(cfg)[2], m, r % m)), got
+            else:
+                assert got["heads"] == list(heads_split(
+                    _heads(cfg, kind), m, r % m)), (kind, got)
 
 
 @pytest.mark.parametrize("mesh", [(1, 2), (1, 4), (2, 2), (1, 8)])
 def test_xlstm_step_equals_world_one(tmp_path, mesh):
     """xlstm smoke (4 heads) on each mesh: 2 or 1 heads a rank, and on
-    (1, 8) every other rank none; the step equals the world of one."""
+    (1, 8) two ranks an mLSTM head (half its value channels each) and
+    every other rank no sLSTM head; the step equals the world of one."""
     cfg = _cfg("xlstm-350m")
     outs = _spawn(tmp_path, selftest.sharded_step_parity,
                   mesh[0] * mesh[1], (cfg, mesh, 4, 32, 2))
@@ -105,10 +114,11 @@ def test_zamba2_step_equals_world_one(tmp_path, mesh, kw):
     ("slstm", "xlstm-350m", 8)])
 def test_recurrent_heads_against_the_reference(tmp_path, kind, arch, m):
     """Each recurrent block over m ranks, some of which compute no head
-    (2 Mamba-2 heads over 4, 4 xLSTM heads over 8): the ranks' per-head
-    outputs concatenated, through the whole out-projection with the
-    residual, are the reference's block output; every rank's block and
-    decode outputs are the reference's."""
+    (2 Mamba-2 heads over 4, 4 sLSTM heads over 8), or, the mLSTM's 4
+    heads over 8, two ranks a head, half its value channels each: the
+    ranks' per-head outputs concatenated, through the whole
+    out-projection with the residual, are the reference's block output;
+    every rank's block and decode outputs are the reference's."""
     check_block_heads(tmp_path, kind, arch, m)
 
 
