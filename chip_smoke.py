@@ -3361,12 +3361,14 @@ DIST_XLSTM_DEEP = dict(arch="xlstm-350m", mesh=(1, 2), seq=256, steps=1)
 # part (``blocks.heads_form``: the leaf gathered whole, or the product of
 # the stored slice exchanged) at decode, on (1, 2): one Mamba-2 block of
 # zamba2 (its packed ``in_proj``), one mLSTM (``up``) and one sLSTM
-# (``wx``, ``out``; ``r`` keeps the weights form) block of xlstm, at
-# full width, fp32, the SSM's chunk cut to the 64 positions of the
-# forward, LM_DECODE's batch of 4: the forward, then 8 decode steps, in
-# each form forced and under the rule (``selftest.heads_decode_forms``),
-# each within DIST_DECODE_REL_RMS of the world of one (the fp32 decode
-# bound, PERF.md §2)
+# block of xlstm (``wx``, ``r``, ``out`` gathered in its heads split; its
+# channels split, ``blocks.slstm_split``, which the rule and the
+# activations form take at decode: ``wx``'s product and ``h`` at every
+# step, ``r`` as stored), at full width, fp32, the SSM's chunk cut to the
+# 64 positions of the forward, LM_DECODE's batch of 4: the forward, then
+# 8 decode steps, in each form forced and under the rule
+# (``selftest.heads_decode_forms``), each within DIST_DECODE_REL_RMS of
+# the world of one (the fp32 decode bound, PERF.md §2)
 DIST_HEADS_DECODE = dict(cases=(("mamba2", "zamba2-2.7b"),
                                 ("mlstm", "xlstm-350m"),
                                 ("slstm", "xlstm-350m")),
@@ -3374,8 +3376,11 @@ DIST_HEADS_DECODE = dict(cases=(("mamba2", "zamba2-2.7b"),
 # and the mLSTM's value split (``blocks.value_split``) the same way on
 # (1, 8), eight gloo ranks: 4 heads of 512 over 8 ranks, each rank one
 # head's q / k whole and 256 of its value channels (``wv`` and ``down``
-# then stored as used; ``up``, ``wq``, ``wk`` exchanged)
-DIST_HEADS_VALUES = dict(cases=(("mlstm", "xlstm-350m"),), mesh=(1, 8),
+# then stored as used; ``up``, ``wq``, ``wk`` exchanged); and the sLSTM,
+# 4 heads of 256 over 8 ranks: at decode 32 channels of every head a
+# rank in its channels split, in the heads split 4 ranks of 8 with none
+DIST_HEADS_VALUES = dict(cases=(("mlstm", "xlstm-350m"),
+                                ("slstm", "xlstm-350m")), mesh=(1, 8),
                          seq=64, steps=8)
 DIST_DECODE_REL_RMS = 1e-3
 # zamba2's fp32 floor lies above those bounds: its Mamba-2 per-head fp32
@@ -3626,8 +3631,11 @@ def _heads_decode_run(device_type, run):
     forced activations form's), and each form's "model" all-gathers move
     the bytes the rule counts; each rank computes the heads of
     ``blocks.heads_split`` (the mLSTM's heads and value channels of
-    ``blocks.value_split``); the milliseconds a decode step of each
-    form, recorded beside the card (not gated)."""
+    ``blocks.value_split``; the sLSTM, whose decode steps take its
+    channels split under the rule and the activations form and its heads
+    split under the weights form, the channels ``heads_split(hd, m, q)``
+    of every head there); the milliseconds a decode step of each form,
+    recorded beside the card (not gated)."""
     from repro_torch.configs import get_config
     from repro_torch.distributed import selftest
     from repro_torch.distributed.launch import spawn
@@ -3654,8 +3662,17 @@ def _heads_decode_run(device_type, run):
             for form, r in by_form.items():
                 got = tuple(next(iter(r["heads"].values()))) + tuple(
                     r["channels"] or ())
-                check(got == want, f"dist: {what}: {form}: computes "
-                      f"{got}, the split gives {want}")
+                split_gives = want
+                if kind == "slstm":
+                    split = "heads" if form == "weights" else "channels"
+                    check(r["splits"]["decode"] == split,
+                          f"dist: {what}: {form}: decodes in the "
+                          f"{r['splits']['decode']} split, not {split}")
+                    if split == "channels":
+                        got, split_gives = tuple(r["channels"]), \
+                            blocks.heads_split(cfg.d_model // h, m, q)
+                check(got == split_gives, f"dist: {what}: {form}: computes "
+                      f"{got}, the split gives {split_gives}")
                 check(r["rel_rms"] <= DIST_DECODE_REL_RMS,
                       f"dist: {what}: {form}: {r['rel_rms']} of the world "
                       f"of one's rms (limit {DIST_DECODE_REL_RMS})")
@@ -3677,14 +3694,24 @@ def _heads_decode_run(device_type, run):
         by_case={kind: {form: dict(
             rel_rms=[o[kind][form]["rel_rms"] for o in outs],
             decode_ms=[o[kind][form]["decode_ms"] for o in outs],
-            heads_by_rank=[list(o[kind][form]["heads"].values())[0] +
-                           (o[kind][form]["channels"] or [])
+            heads_by_rank=[_decode_part(o[kind][form], cfg_of[kind])
                            for o in outs],
+            splits=outs[0][kind][form]["splits"],
             heads_forms=outs[0][kind][form]["heads_forms"],
             model_bytes=outs[0][kind][form]["model_bytes"],
             rule_bytes=outs[0][kind][form]["heads_moved"])
             for form in outs[0][kind]} for kind in outs[0]},
         card=card_line(), seconds=time.perf_counter() - t0)
+
+
+def _decode_part(r, cfg):
+    """The heads and channels a rank's decode steps computed, from one
+    form's record of ``selftest.heads_decode_forms``: an sLSTM in its
+    channels split every head and its channels."""
+    heads = list(next(iter(r["heads"].values())))
+    if (r["splits"] or {}).get("decode") == "channels":
+        heads = [0, cfg.n_heads]
+    return heads + (r["channels"] or [])
 
 
 def _case_cuts(run):

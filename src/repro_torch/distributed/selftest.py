@@ -521,7 +521,10 @@ def block_heads(cfg, kind: str, leaves: Optional[Dict[str, np.ndarray]],
     leaves the whole numpy ``leaves`` (by parameter name) sliced as the
     build slices them (``None``: the block's own draws from seed 0, the
     world of one's, sliced): the heads it computes (an mLSTM's value
-    ``channels`` of each too; ``None`` for another kind), their outputs on
+    ``channels`` of each too, an sLSTM's ``hd`` channels of every head
+    where its decode steps take the channels split; ``None`` otherwise),
+    an sLSTM's split of the forward and of a decode step (``splits``,
+    ``SlstmBlock.split_of``; ``None`` for another kind), their outputs on
     ``x`` [B,S,d] before the row-parallel product (``head_outputs``),
     the block's output (summed over "model"), and its ``decode`` outputs
     on the first ``decode_steps`` positions of ``x``, all as numpy;
@@ -530,7 +533,8 @@ def block_heads(cfg, kind: str, leaves: Optional[Dict[str, np.ndarray]],
     rule).  Of the decode steps alone: the calls by form
     (``heads_forms``), the bytes the rule counts for them
     (``heads_moved``), the collectives' "model" bytes by kind
-    (``model_bytes``) and the milliseconds a step (``decode_ms``, the
+    (``model_bytes``), the leaves gathered whole over "model", by name
+    (``leaf_gathers``), and the milliseconds a step (``decode_ms``, the
     device synchronised).  ``alone``: the world of one, on this rank by
     itself (no collective)."""
     import torch.distributed as dist
@@ -570,9 +574,17 @@ def block_heads(cfg, kind: str, leaves: Optional[Dict[str, np.ndarray]],
     coll = sharding.stats.as_dict()
     got = {n: mod.heads for n, mod in blk.named_modules()
            if isinstance(getattr(mod, "heads", None), tuple)}
+    splits = channels = None
+    if hasattr(blk, "channels"):
+        channels = list(blk.channels)
+    elif hasattr(blk, "split_of"):
+        splits = dict(forward=blk.split_of(*x.shape[:2]),
+                      decode=blk.split_of(x.shape[0], 1))
+        if splits["decode"] == "channels":
+            channels = list(blk.hd_channels)
     return dict(heads={n or kind: list(h) for n, h in got.items()},
-                channels=(list(blk.channels) if hasattr(blk, "channels")
-                          else None),
+                channels=channels, splits=splits,
+                leaf_gathers=dict(coll["leaf_gathers"].get("model", {})),
                 head_outputs=heads.float().cpu().numpy(),
                 out=y.float().cpu().numpy(),
                 decode=[t.float().cpu().numpy() for t in steps],
@@ -594,7 +606,8 @@ def heads_decode_forms(cases, batch: int, seq: int, steps: int) -> Dict:
     input) against the world of one's; the decode steps' calls by form,
     the rule's bytes for them, their "model" collectives' bytes and
     their milliseconds a step, and the rank's heads and (an mLSTM's)
-    value channels, by kind and form."""
+    value channels (an sLSTM's ``hd`` channels and its splits), by kind
+    and form."""
     from ..models import blocks
     out = {}
     for cfg, kind in cases:
@@ -615,7 +628,7 @@ def heads_decode_forms(cases, batch: int, seq: int, steps: int) -> Dict:
                             for h, w in zip(have, want)),
                 **{k: got[k] for k in ("heads_forms", "heads_moved",
                                        "model_bytes", "decode_ms", "heads",
-                                       "channels")})
+                                       "channels", "splits")})
     return out
 
 

@@ -20,8 +20,10 @@ as one rank of the production mesh would:
   coordinate 15, every other 0), the busiest: the heads split unevenly
   (``blocks.heads_split``) and the last rank computes ``⌈h/16⌉`` of
   every block's ``h``, where the first may compute ``⌊h/16⌋`` or none
-  (xlstm's 4 sLSTM heads; its mLSTM's 4 heads are split over all 16
-  ranks by value channels, ``blocks.value_split``, alike on each);
+  (xlstm's 4 sLSTM heads in a train or prefill call; its mLSTM's 4
+  heads are split over all 16 ranks by value channels,
+  ``blocks.value_split``, and at decode its sLSTM by ``hd`` channels of
+  every head, ``blocks.slstm_split``, alike on each);
   every other count is alike on every rank;
 * its model is built on ``meta`` on its shards (``Model(cfg,
   device="meta", tp=(15, 16), dp=(0, 16))``: its "model" shards and its

@@ -26,7 +26,10 @@ whole and sliced, so the draws are the world of one's.  Every block then
 computes on its shards, Megatron's way: each rank computes the heads
 :func:`heads_split` gives it (an uneven split: ``⌊h/m⌋`` or ``⌈h/m⌉``,
 none where ``h < m``) — the attention's query heads and the K/V heads
-they read, Mamba-2's SSD heads, the sLSTM's heads; the mLSTM's heads,
+they read, Mamba-2's SSD heads, the sLSTM's heads, or, where
+:func:`slstm_split` counts it cheaper (a decode step), the sLSTM's
+``hd`` output channels of every head, ``h`` exchanged at every step;
+the mLSTM's heads,
 or where they are fewer than the ranks one head's share of value
 channels (:func:`value_split`) — and the hidden units of its slice of
 the MLP; the products into them are
@@ -155,6 +158,16 @@ def _stored_as_used(shape, spec: Optional[P], dim: int,
     return sd == dim and pieces == [(rank * shape[sd] // m, shape[sd] // m)]
 
 
+def _add_cut(cuts: Dict[str, tuple], name: str, shape, spec: Optional[P],
+             dim: int, pieces: Optional[Pieces],
+             rows: Optional[Pieces] = None) -> None:
+    """Enter in ``cuts`` the leaf ``name`` of whole ``shape`` (stored as
+    ``spec`` gives) where the rank being built uses ``pieces`` of it
+    along ``dim`` that it does not store (:meth:`_Heads._leaf`)."""
+    if pieces is not None and not _stored_as_used(shape, spec, dim, pieces):
+        cuts[name] = (model_dim(spec), dim, pieces, rows)
+
+
 #: the two things a gathered leaf's use can exchange over "model"
 FORMS = ("weights", "activations")
 #: the uses of a leaf whose stored slice is not its part, by the form
@@ -197,13 +210,64 @@ def heads_form(*args) -> str:
     ``wk`` / ``wv``, ``in_proj``, ``up``, ``wx``) and a row leaf (cut
     along its first, the rows its heads' outputs multiply: ``wo``,
     ``down``, ``out_proj``, and the sLSTM's ``out``, which is stored on
-    its output columns) have the activations form.  The sLSTM's ``r``
-    keeps the weights form: stored on ``hd`` and cut on heads, its
-    product sits inside the token loop, where an exchange would put a
-    collective in every step.  A leaf stored whole (``conv_w``, ``wif``,
-    the norms) is not gathered at all: it is cut as it is."""
+    its output columns) have the activations form.  The sLSTM's ``r``,
+    stored on ``hd`` and cut on heads, has no product to exchange
+    outside its token loop: :func:`slstm_split` chooses between
+    gathering it (the heads split) and the reference's split of every
+    head's channels, which exchanges ``h`` at every step.  A leaf stored
+    whole (``conv_w``, ``wif``, the norms) is not gathered at all: it is
+    cut as it is."""
     b = heads_form_bytes(*args)
     return "activations" if b["activations"] < b["weights"] else "weights"
+
+
+#: the collectives over "model" of one sLSTM call in the heads split
+#: (``r`` gathered, ``wx``'s and ``out``'s exchanges)
+SLSTM_HEADS_COLLECTIVES = 3
+
+
+def slstm_split_bytes(rows: int, steps: int, d: int, h: int, m: int,
+                      act_bytes: int, w_bytes: int) -> Dict[str, int]:
+    """The "model" bytes one sLSTM call of ``steps`` tokens on ``rows``
+    rows a rank gathers forward in each split, counted as
+    :func:`heads_form_bytes` counts them, for ``d`` channels in ``h``
+    heads of ``hd = d/h`` over ``m`` ranks, the specs storing ``wx``
+    and ``out`` on their output columns and ``r [4, h, hd, hd]`` on its
+    ``hd`` output axis (``act_bytes`` / ``w_bytes``: the activations'
+    and the weights' element size):
+
+    * ``"heads"``: the rank's slice of ``r`` gathered,
+      ``4·h·hd·(hd/m)·w_bytes``, and ``wx``'s and ``out``'s exchanges in
+      the form :func:`heads_form` takes for each;
+    * ``"channels"``: every step's ``h`` gathered from the ranks' fp32
+      channels, ``steps·rows·h·⌈hd/m⌉·4``, and ``wx``'s exchange;
+      ``out`` takes the whole ``h`` and exchanges nothing."""
+    hd = d // h
+    n = rows * steps
+    wx = min(heads_form_bytes(n, d, 4 * d, m, act_bytes, w_bytes).values())
+    out = min(heads_form_bytes(n, d, d, m, act_bytes, w_bytes,
+                               -(-h // m) * hd).values())
+    return dict(heads=4 * h * hd * (hd // m) * w_bytes + wx + out,
+                channels=steps * rows * h * -(-hd // m) * 4 + wx)
+
+
+def slstm_split(*args) -> str:
+    """The channels split where it moves fewer bytes than the heads split
+    (:func:`slstm_split_bytes`, same arguments) in no more collectives,
+    else ``"heads"``.  A call of S steps issues S + 1 collectives over
+    "model" in the channels split (``h`` at every step, one after
+    another in the token loop, and ``wx``'s exchange), 3 in the heads
+    split (``r``, ``wx``, ``out``): bytes alone would trade one gather
+    for a chain of S, whose latency they do not count.  It reads shapes
+    only, so every rank of the "model" group takes the same split with
+    no collective.  At xlstm's 4 heads of 256 over 16 ranks, bf16
+    weights, a decode step (8 rows or 1) takes the channels split
+    (2,048 B of ``h`` a layer at 8 rows, against 131,072 of ``r``), a
+    ``train_4k`` or ``prefill_32k`` call (65,536 rows·steps) the heads
+    split (16.8 MB of ``h``, in 4,096 or 32,768 collectives)."""
+    b = slstm_split_bytes(*args)
+    fewer = args[1] + 1 <= SLSTM_HEADS_COLLECTIVES
+    return "channels" if fewer and b["channels"] < b["heads"] else "heads"
 
 
 class _Heads(nn.Module):
@@ -234,9 +298,7 @@ class _Heads(nn.Module):
         norm's weight); ``rows``: of a row leaf the rank's heads read
         row-parallel, every rank's one piece along ``dim``, in rank
         order, which together are the whole dimension in order."""
-        if pieces is not None and not _stored_as_used(t.shape, spec, dim,
-                                                      pieces):
-            self.cuts[name] = (model_dim(spec), dim, pieces, rows)
+        _add_cut(self.cuts, name, t.shape, spec, dim, pieces, rows)
         setattr(self, name, _param(t, spec))
 
     @property
@@ -245,13 +307,17 @@ class _Heads(nn.Module):
         is gathered whole over "model", or its product is exchanged."""
         return tuple(n for n, c in self.cuts.items() if c[0] is not None)
 
-    def part(self, name: str) -> torch.Tensor:
+    def part(self, name: str, cuts: Optional[Dict[str, tuple]] = None
+             ) -> torch.Tensor:
         """The leaf ``name``'s pieces this rank computes with,
-        concatenated in order along their dimension."""
+        concatenated in order along their dimension; ``cuts``: another
+        table of pieces than :attr:`cuts` (a second split of the
+        block's work)."""
+        cuts = self.cuts if cuts is None else cuts
         w = getattr(self, name)
-        if name not in self.cuts:
+        if name not in cuts:
             return w
-        gdim, dim, pieces, _ = self.cuts[name]
+        gdim, dim, pieces, _ = cuts[name]
         if gdim is None:
             w = sharding.copy_to_model(w)
         else:
@@ -262,9 +328,10 @@ class _Heads(nn.Module):
                 w, gdim, getattr(w, "leaf_name", name), partial_grad=True)
         return _cut(w, dim, pieces)
 
-    def product(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        """``x @ part(name)``: the product of ``x`` [..., k] with the leaf
-        ``name``'s part on the rank's heads.  Where the leaf is gathered
+    def product(self, name: str, x: torch.Tensor,
+                cuts: Optional[Dict[str, tuple]] = None) -> torch.Tensor:
+        """``x @ part(name, cuts)``: the product of ``x`` [..., k] with the
+        leaf ``name``'s part on the rank's heads.  Where the leaf is gathered
         over "model", in the form :func:`heads_form` takes (:attr:`form`
         where it is set):
 
@@ -280,16 +347,16 @@ class _Heads(nn.Module):
           zeros), which the caller's :func:`sharding.reduce_from_model`
           sums as before.  A rank with no head computes on its stored
           slice all the same, so every collective runs on every rank."""
-        cut = self.cuts.get(name)
+        cut = (self.cuts if cuts is None else cuts).get(name)
         if cut is None or cut[0] is None or sharding.model_size() == 1:
-            return x @ self.part(name)
+            return x @ self.part(name, cuts)
         gdim, dim, pieces, rows = cut
         w = getattr(self, name)
         m = sharding.model_size()
         column = gdim == dim == w.ndim - 1
         row = dim == 0 and rows is not None
         if not (column or row):
-            return x @ self.part(name)
+            return x @ self.part(name, cuts)
         whole = list(w.shape)
         whole[gdim] *= m
         share = max(n for _, n in rows) if row else None
@@ -297,7 +364,7 @@ class _Heads(nn.Module):
                 w.element_size(), share)
         form = self.form or heads_form(*args)
         if form == "weights":
-            return x @ self.part(name)
+            return x @ self.part(name, cuts)
         heads_forms[form] += 1
         heads_moved[form] += heads_form_bytes(*args)[form]
         if column:
@@ -1029,13 +1096,32 @@ class SlstmBlock(_Heads):
     residual.  ``ln [d]``, ``wx [d, 4·d]``, ``r [4, H, hd, hd]`` (std
     0.3/√hd), ``out [d, d]``.
 
-    The recurrence is block-diagonal by head, so a rank computes its
-    heads ``heads = [lo, hi)`` of :func:`heads_split` with no collective
-    inside the loop: their four gates' columns of ``wx``, their blocks of
-    ``r``, and ``out`` row-parallel on their rows.  Where the specs'
-    slice is not that part, ``wx``'s and ``out``'s products or the
-    leaves themselves are exchanged (:func:`heads_form`); ``r`` is
-    gathered whole (stored on ``hd``, cut on heads)."""
+    Over "model" the work splits one of two ways, per call, as
+    :func:`slstm_split` counts from the call's rows and steps
+    (:meth:`split_of`; :attr:`form` ``"weights"`` forces the first,
+    ``"activations"`` the second):
+
+    * ``"heads"``: the recurrence is block-diagonal by head, so a rank
+      computes its heads ``heads = [lo, hi)`` of :func:`heads_split`
+      with no collective inside the loop: their four gates' columns of
+      ``wx``, their blocks of ``r``, and ``out`` row-parallel on their
+      rows.  Where the specs' slice is not that part, ``wx``'s and
+      ``out``'s products or the leaves themselves are exchanged
+      (:func:`heads_form`); ``r`` is gathered whole (stored on ``hd``,
+      cut on heads).
+    * ``"channels"``, the reference's split of ``r``: a rank computes
+      the output channels ``hd_channels = [c_lo, c_hi)`` of
+      :func:`heads_split` of ``hd`` in every head and gate: ``wx``'s
+      columns ``g·d + j·hd + [c_lo, c_hi)`` (gate g, head j), ``r`` as
+      stored, the update of ``c``, ``n``, ``m`` on those channels, and
+      each step's ``h`` gathered whole over "model" for the next step's
+      product (its gradient reduce-scattered back).  ``out`` takes the
+      whole ``h`` times its stored output columns, placed among zeros
+      for the row-parallel sum.
+
+    A decode cache holds the state of the split its ``init_cache`` took
+    (``c``, ``n``, ``m`` of the rank's heads or channels, ``h`` as the
+    loop needs it); stepping it in the other split raises."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator):
         super().__init__()
@@ -1046,7 +1132,8 @@ class SlstmBlock(_Heads):
         gen = generator
         sp = self.param_specs()
         lo, hi = self.heads = _build_heads(h)
-        self.tp = sharding.build_size() > 1
+        self.m, rank = sharding.build_size(), sharding.build_rank()
+        self.tp = self.m > 1
         self.ln = _ones(cfg, gen)
         self._leaf("wx", _init_dense(gen, d, 4 * d, dt), sp["wx"], 1,
                    _spans(lo, hi, hd, *range(0, 4 * d, d)))
@@ -1054,6 +1141,14 @@ class SlstmBlock(_Heads):
                    sp["r"], 1, _spans(lo, hi, 1))
         self._leaf("out", _init_dense(gen, d, d, dt), sp["out"], 0,
                    _spans(lo, hi, hd), _head_rows(h, hd))
+        clo, chi = self.hd_channels = heads_split(hd, self.m, rank)
+        self.channel_cuts: Dict[str, tuple] = {}
+        for name, shape, dim, pieces in (
+                ("wx", (d, 4 * d), 1, [(g * d + j * hd + clo, chi - clo)
+                                       for g in range(4) for j in range(h)]),
+                ("r", (4, h, hd, hd), 3, [(clo, chi - clo)]),
+                ("out", (d, d), 1, _spans(*heads_split(d, self.m, rank), 1))):
+            _add_cut(self.channel_cuts, name, shape, sp[name], dim, pieces)
 
     def param_specs(self) -> Dict[str, P]:
         d = self.cfg.d_model
@@ -1061,40 +1156,116 @@ class SlstmBlock(_Heads):
                     r=P(None, None, None, mdl(d // self.cfg.n_heads)),
                     out=P(None, mdl(d)))
 
-    def _scan(self, x, state=None):
-        """The sLSTM on the rank's heads: ``(h_seq [B,S,nl·hd], state)``
-        (before ``out``)."""
+    def split_of(self, rows: int, steps: int) -> str:
+        """The split, ``"heads"`` or ``"channels"``, a call of ``steps``
+        tokens on ``rows`` rows takes: the heads split in the world of one and
+        where ``r`` is stored whole (nothing of it to save), else
+        :attr:`form`'s, or :func:`slstm_split`'s from the shapes."""
+        if self.m == 1 or "r" not in self.gather_leaves:
+            return "heads"
+        if self.form is not None:
+            return "channels" if self.form == "activations" else "heads"
+        return slstm_split(rows, steps, self.cfg.d_model, self.cfg.n_heads,
+                           self.m, dtype_of(self.cfg.compute_dtype).itemsize,
+                           self.wx.element_size())
+
+    def _whole_h(self, hp: torch.Tensor) -> torch.Tensor:
+        """Every rank's channels ``hp`` [B,H,P] of ``h``, gathered over
+        "model" into the whole ``h`` [B,H,hd] (padded to the widest
+        rank's channels for an equal-size gather; the gradient
+        reduce-scattered back)."""
+        hd = self.cfg.d_model // self.cfg.n_heads
+        share = -(-hd // self.m)
+        if hp.shape[-1] < share:
+            hp = F.pad(hp, (0, share - hp.shape[-1]))
+        o = sharding.gather_from_model(hp, -1, partial_grad=True)
+        if hd % self.m == 0:
+            return o
+        return _cut(o, -1, [(j * share, b - a) for j, (a, b) in enumerate(
+            heads_split(hd, self.m, q) for q in range(self.m))])
+
+    def _scan(self, x, split, state=None):
+        """The sLSTM in ``split``: ``(h_seq, state)`` (before ``out``),
+        ``h_seq`` [B,S,nl·hd] of the rank's heads in the heads split, the
+        whole [B,S,d] in the channels split."""
         b, s, d = x.shape
-        nl = self.heads[1] - self.heads[0]
-        parts = self.product("wx", _column(rms_norm(x, self.ln), self.tp)
-                             ).reshape(b, s, 4, nl, d // self.cfg.n_heads)
-        ys, state = ssm_lib.slstm_scan(parts, self.part("r"), state)
+        h = self.cfg.n_heads
+        xn = _column(rms_norm(x, self.ln), self.tp)
+        if split == "heads":
+            nl = self.heads[1] - self.heads[0]
+            parts = self.product("wx", xn).reshape(b, s, 4, nl, d // h)
+            ys, state = ssm_lib.slstm_scan(parts, self.part("r"), state)
+            return ys.to(x.dtype).flatten(2), state
+        cuts = self.channel_cuts
+        clo, chi = self.hd_channels
+        parts = self.product("wx", xn, cuts).reshape(b, s, 4, h, chi - clo)
+        heads_forms["activations"] += 1
+        heads_moved["activations"] += \
+            s * b * h * -(-(d // h) // self.m) * 4
+        ys, state = ssm_lib.slstm_scan(parts, self.part("r", cuts), state,
+                                       self._whole_h)
         return ys.to(x.dtype).flatten(2), state
 
-    def _out(self, x, ys):
-        return x + _row(self.product("out", ys), self.tp)
+    def _out(self, x, ys, split):
+        if split == "heads":
+            return x + _row(self.product("out", ys), self.tp)
+        lo, hi = heads_split(self.cfg.d_model, self.m, sharding.model_rank())
+        y = ys @ self.part("out", self.channel_cuts)
+        return x + _row(F.pad(y, (lo, self.cfg.d_model - hi)), self.tp)
 
     def head_outputs(self, x: torch.Tensor) -> torch.Tensor:
-        """The sLSTM's ``h`` on the rank's heads [B,S,nl·hd] (before
-        ``out``)."""
-        return self._scan(x)[0]
+        """The sLSTM's ``h`` before ``out``: on the rank's heads
+        [B,S,nl·hd] in the heads split, on its channels of every head
+        [B,S,H·P] in the channels split."""
+        split = self.split_of(*x.shape[:2])
+        ys = self._scan(x, split)[0]
+        if split == "heads":
+            return ys
+        clo, chi = self.hd_channels
+        return ys.unflatten(-1, (self.cfg.n_heads, -1))[..., clo:chi
+                                                        ].flatten(2)
 
     def forward(self, x: torch.Tensor, off: int = 0,
                 force_chunked: bool = False):
         """x: [B,S,d] -> ``(x, 0)``."""
-        return self._out(x, self._scan(x)[0]), _no_aux(x)
+        split = self.split_of(*x.shape[:2])
+        return self._out(x, self._scan(x, split)[0], split), _no_aux(x)
+
+    def _state_shapes(self, batch: int, split: str):
+        """The shapes of ``c`` / ``n`` / ``m`` and of ``h`` in ``split``:
+        [B,nl,hd] each of the rank's heads, or [B,H,P] of its channels
+        and ``h`` whole [B,H,hd]."""
+        h = self.cfg.n_heads
+        hd = self.cfg.d_model // h
+        if split == "heads":
+            part = (batch, self.heads[1] - self.heads[0], hd)
+            return part, part
+        clo, chi = self.hd_channels
+        return (batch, h, chi - clo), (batch, h, hd)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
-        """The fp32 state ``c``, ``n``, ``h``, ``m`` [B,nl,hd] of the
-        rank's heads at its start (n = 1e-6, m = -10)."""
-        z = torch.zeros((batch, self.heads[1] - self.heads[0],
-                         self.cfg.d_model // self.cfg.n_heads),
-                        dtype=torch.float32, device=self.ln.device)
-        return dict(c=z, n=z + 1e-6, h=z, m=z - 10.0)
+        """The fp32 state ``c``, ``n``, ``h``, ``m`` at its start (n =
+        1e-6, m = -10) in the split a decode step of ``batch`` rows takes
+        (:meth:`split_of`)."""
+        part, whole = self._state_shapes(batch, self.split_of(batch, 1))
+        kw = dict(dtype=torch.float32, device=self.ln.device)
+        z = torch.zeros(part, **kw)
+        hz = z if part == whole else torch.zeros(whole, **kw)
+        return dict(c=z, n=z + 1e-6, h=hz, m=z - 10.0)
 
     def decode(self, cache: Dict[str, torch.Tensor], x_t: torch.Tensor,
                pos: int) -> torch.Tensor:
+        """x_t: [B,1,d]; the state is replaced.  A cache whose state is not
+        of this step's split raises."""
+        split = self.split_of(x_t.shape[0], 1)
+        want = self._state_shapes(x_t.shape[0], split)
+        got = tuple(cache["c"].shape), tuple(cache["h"].shape)
+        if got != want:
+            raise ValueError(
+                f"an sLSTM cache of c / h {got[0]} / {got[1]} stepped in "
+                f"the {split} split, whose state is {want[0]} / {want[1]}: "
+                "it was made in the other split")
         state = (cache["c"], cache["n"], cache["h"], cache["m"])
-        ys, (c, n, hh, m) = self._scan(x_t, state)
+        ys, (c, n, hh, m) = self._scan(x_t, split, state)
         cache.update(c=c, n=n, h=hh, m=m)
-        return self._out(x_t, ys)
+        return self._out(x_t, ys, split)

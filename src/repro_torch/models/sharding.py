@@ -31,7 +31,8 @@ tp=(rank, m))`` holds only its shard of each leaf whose spec names
 the rank's share of every block's heads (``blocks.heads_split``, an
 uneven split where GSPMD pads: attention, Mamba-2, the mLSTM and sLSTM;
 the mLSTM's ranks that share a head split its value channels,
-``blocks.value_split``)
+``blocks.value_split``; at decode the sLSTM's ranks split every head's
+output channels, as GSPMD splits its ``r``, ``blocks.slstm_split``)
 and of the MLP's hidden units: column-parallel products into them, each
 row-parallel product out of them followed by one
 :func:`reduce_from_model`, experts parallel over "model", the vocabulary

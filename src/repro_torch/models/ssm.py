@@ -17,7 +17,7 @@ that no intermediate is larger than the fp32 decay matrix ``L``
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -187,8 +187,9 @@ def mlstm_decode_step(state, q_t, k_t, v_t, i_t, f_t):
 
 
 def slstm_scan(x_parts: torch.Tensor, r_weights: torch.Tensor,
-               state: Optional[Tuple] = None
-               ) -> Tuple[torch.Tensor, Tuple]:
+               state: Optional[Tuple] = None,
+               exchange: Optional[Callable[[torch.Tensor], torch.Tensor]]
+               = None) -> Tuple[torch.Tensor, Tuple]:
     """Scalar-LSTM with exponential gating + per-head state mixing.
 
     x_parts: [B,S,4,H,hd] — precomputed W{z,i,f,o} @ x per token.
@@ -197,19 +198,29 @@ def slstm_scan(x_parts: torch.Tensor, r_weights: torch.Tensor,
     recurrent products of a step are one batched product on ``r`` stacked
     to [H, hd, 4·hd].  Returns h_seq [B,S,H,hd] (fp32) and the final
     state (c, n, h, m), fp32.
+
+    ``exchange``: a caller that computes only ``P`` of each head's output
+    channels passes ``x_parts`` [B,S,4,H,P] and ``r_weights``
+    [4,H,hd,P] of those channels; ``c``, ``n`` and ``m`` are then
+    [B,H,P], and each step's ``h`` [B,H,P] becomes, through
+    ``exchange``, the whole ``h`` [B,H,hd] that the next step's product
+    and ``h_seq`` take.  ``None``: every channel, the reference's loop.
     """
-    B, S, _, H, hd = x_parts.shape
+    B, S, _, H, P = x_parts.shape
+    hd = r_weights.shape[2]
     f32 = torch.float32
     if state is None:
-        z0 = torch.zeros((B, H, hd), dtype=f32, device=x_parts.device)
-        state = (z0, z0 + 1e-6, z0, z0 - 10.0)            # c, n, h, m
+        z0 = torch.zeros((B, H, P), dtype=f32, device=x_parts.device)
+        h0 = z0 if exchange is None else torch.zeros(
+            (B, H, hd), dtype=f32, device=x_parts.device)
+        state = (z0, z0 + 1e-6, h0, z0 - 10.0)            # c, n, h, m
     c, n, h, m = state
-    r = r_weights.to(f32).permute(1, 2, 0, 3).reshape(H, hd, 4 * hd)
+    r = r_weights.to(f32).permute(1, 2, 0, 3).reshape(H, hd, 4 * P)
     xs = x_parts.to(f32)
     hs = []
     for t in range(S):
-        rr = torch.bmm(h.transpose(0, 1), r)              # [H,B,4*hd]
-        g = xs[:, t] + rr.reshape(H, B, 4, hd).permute(1, 2, 0, 3)
+        rr = torch.bmm(h.transpose(0, 1), r)              # [H,B,4*P]
+        g = xs[:, t] + rr.reshape(H, B, 4, P).permute(1, 2, 0, 3)
         zt = torch.tanh(g[:, 0])
         it = g[:, 1]
         fm = g[:, 2] + m
@@ -220,5 +231,7 @@ def slstm_scan(x_parts: torch.Tensor, r_weights: torch.Tensor,
         c = fp * c + ip * zt
         n = fp * n + ip
         h = ot * c / torch.clamp(n, min=1.0)
+        if exchange is not None:
+            h = exchange(h)
         hs.append(h)
     return torch.stack(hs, dim=1), (c, n, h, m)

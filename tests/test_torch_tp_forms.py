@@ -9,7 +9,8 @@ stored rows' product summed as before).
   package's block on the same numpy inputs (forward and decode, at
   ``tests/test_torch_tp_heads.py``'s tolerance), on (1, 2), (1, 4) and a
   mesh where some rank computes no head; the decode steps' calls took
-  the activations form wherever a leaf has it, and their "model"
+  the activations form wherever a leaf has it (the sLSTM: its channels
+  split, ``h`` exchanged in place of ``r`` gathered), and their "model"
   all-gathers moved what the rule counts.
 * One sharded train step of zamba2 and xlstm smoke, the activations
   form forced (its backward reduce-scatters the products' gradients),
@@ -51,9 +52,12 @@ BLOCK_CASES = [
     # each (``blocks.value_split``), which are the stored slices of
     # ``wv`` and ``down``
     ("mlstm", "xlstm-350m", 4, dict(n_heads=2), {"up", "wq", "wk"}),
-    ("slstm", "xlstm-350m", 2, {}, {"wx", "out"}),
-    ("slstm", "xlstm-350m", 4, {}, {"wx", "out"}),
-    ("slstm", "xlstm-350m", 4, dict(n_heads=2), {"wx", "out"}),
+    # the sLSTM in its channels split (``blocks.slstm_split``): ``wx``'s
+    # product, and ``h`` at every step in place of ``r``; ``out`` takes
+    # the whole ``h`` and exchanges nothing
+    ("slstm", "xlstm-350m", 2, {}, {"wx", "r"}),
+    ("slstm", "xlstm-350m", 4, {}, {"wx", "r"}),
+    ("slstm", "xlstm-350m", 4, dict(n_heads=2), {"wx", "r"}),
 ]
 
 
@@ -67,18 +71,16 @@ def test_activations_form_against_the_reference(tmp_path, case):
     """The block with the activations form forced is the reference's
     (per-head outputs, block output, decode outputs:
     ``check_block_heads``); in its decode steps every call on a leaf that
-    has two forms took the activations form (the sLSTM's ``r`` keeps the
-    weights form), and the "model" all-gathers moved exactly the bytes
-    the rule counts for the forms taken."""
+    has two forms took the activations form (the sLSTM's ``r``: ``h``
+    exchanged, no leaf gathered whole), and the "model" all-gathers
+    moved exactly the bytes the rule counts for the forms taken."""
     kind, arch, m, kw, leaves = case
     outs = check_block_heads(tmp_path, kind, arch, m, "activations", **kw)
     for o in outs:
-        # one call a leaf a step; the sLSTM's r gathered whole
-        weights = 1 if kind == "slstm" else 0
-        want = {"activations": len(leaves) * 4}
-        if weights:
-            want["weights"] = weights * 4
-        assert o["heads_forms"] == want, o["heads_forms"]
+        # one call a leaf a step, none gathered whole
+        assert o["heads_forms"] == {"activations": len(leaves) * 4}, \
+            o["heads_forms"]
+        assert o["leaf_gathers"] == {}, o["leaf_gathers"]
         assert o["model_bytes"]["all-gather"] == sum(
             o["heads_moved"].values()) > 0, o
 
@@ -109,7 +111,8 @@ def test_activations_form_step_equals_world_one(tmp_path, arch, kw):
     the bound or within ``FLOOR_K`` of the world of one's own fp32
     floor, since Mamba-2's per-head scalars take their gradients with
     heavy cancellation); every rank holds the specs' share, and no leaf
-    but the sLSTM's ``r`` was gathered whole."""
+    was gathered whole (the sLSTM in its channels split: ``h`` gathered
+    at every token, its gradient reduce-scattered back)."""
     cfg = _cfg(arch, **kw)
     floor = arch == "zamba2-2.7b"
     outs = _spawn(tmp_path, selftest.sharded_step_parity, 2,
@@ -126,7 +129,7 @@ def test_activations_form_step_equals_world_one(tmp_path, arch, kw):
         assert o["heads_forms"].get("activations", 0) > 0, o["heads_forms"]
         gathered = {n.rsplit(".", 1)[1]
                     for n in o["leaf_gathers"].get("model", {})}
-        assert gathered <= {"r"}, gathered
+        assert gathered == set(), gathered
 
 
 # the production mesh's rows a rank: decode_32k (batch 128 over 16 data

@@ -70,8 +70,11 @@ def check_block_heads(tmp_path, kind, arch, m, form=None, **kw):
     drawn anew, so that none is trivial) on the same numpy inputs, in
     fp32 at ``TOL``: each rank computes the heads of
     :func:`heads_split` (an mLSTM: the heads and value channels of
-    :func:`value_split`); their per-head outputs, concatenated over the
-    ranks in order, are the reference's (attention: its output before
+    :func:`value_split`; an sLSTM whose decode takes the channels split,
+    ``blocks.slstm_split``: the channels ``heads_split(hd, m, r)`` of
+    every head); their per-head outputs (an sLSTM's forward in the
+    channels split: each head's channels), concatenated over the ranks
+    in order, are the reference's (attention: its output before
     ``wo``; a recurrent block: through the whole out-projection, with the
     residual, its block's output); every rank's block output (the
     row-parallel sum) and its first ``DECODE_STEPS`` decode outputs are
@@ -93,7 +96,13 @@ def check_block_heads(tmp_path, kind, arch, m, form=None, **kw):
                   (cfg, kind, leaves, x, DECODE_STEPS, form))
     jx = jnp.asarray(x)
     ref, _ = ref_blocks.TRAIN_FNS[kind](rcfg, params, jx, 0, None)
-    heads = np.concatenate([o["head_outputs"] for o in outs], axis=-1)
+    if (outs[0]["splits"] or {}).get("forward") == "channels":
+        # each rank's channels of every head [B,S,H·P], put in head order
+        heads = np.concatenate([o["head_outputs"].reshape(
+            *x.shape[:2], rcfg.n_heads, -1) for o in outs], axis=-1
+        ).reshape(x.shape)
+    else:
+        heads = np.concatenate([o["head_outputs"] for o in outs], axis=-1)
     if kind in OUT_LEAF:
         h = (rcfg.n_heads if kind != "mamba2" else
              ref_blocks._mamba_dims(rcfg)[2])
@@ -122,6 +131,9 @@ def check_block_heads(tmp_path, kind, arch, m, form=None, **kw):
         else:
             assert set(map(tuple, o["heads"].values())) == {
                 heads_split(h, m, r)}, o["heads"]
+            if kind == "slstm" and o["splits"]["decode"] == "channels":
+                assert tuple(o["channels"]) == heads_split(
+                    cfg.d_model // h, m, r), o["channels"]
         np.testing.assert_allclose(o["out"], np.asarray(ref), atol=TOL,
                                    rtol=TOL)
         assert len(o["decode"]) == DECODE_STEPS
